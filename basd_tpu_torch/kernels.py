@@ -1,0 +1,138 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel library is one `csrc/<name>.cu` file with a plain C interface,
+compiled by `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so`
+at first use and loaded with `ctypes`. The hash of the source is part of
+the file name, so an edited source is rebuilt and a stale library is never
+loaded. Nothing is built while a module is imported.
+
+`LAUNCHES` counts, per kernel wrapper, the calls that launched a kernel on
+the card. Wrappers add one where they launch and nowhere else; callers that
+want to show a run went through the kernels reset it with
+`reset_launches()` and read it afterwards.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# the C libraries and the ctypes signatures of their entry points
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES: dict[str, dict[str, list]] = {
+    "attention": {
+        # q, k, v, o, m, denom, B, N, H, hd, q strides (b, n), k strides,
+        # v strides, is_bf16, stream
+        "basd_attention_fwd": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _P],
+        # q, k, v, do, m, denom, dd, dq, dk, dv, B, N, H, hd, q/k/v/do
+        # strides (b, n), is_bf16, stream
+        "basd_attention_bwd": [_P] * 10 + [_I] * 4 + [_L] * 8 + [_I, _P],
+    },
+    "jacobi_eigh": {
+        # a, w, vt, batch, n, steps, stream
+        "basd_jacobi_eigh": [_P] * 3 + [_I] * 3 + [_P],
+    },
+}
+
+LAUNCHES: dict[str, int] = {
+    "attention_fwd": 0,
+    "attention_bwd": 0,
+    "jacobi_eigh": 0,
+}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built from "
+        "basd_tpu_torch/csrc at first use and need the CUDA toolkit"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _nvcc_cmd(name: str, out: Path) -> list[str]:
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), str(CSRC / f"{name}.cu"),
+    ]
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel library that is not built yet, one `nvcc` per
+    source, all started together. Returns the compiler's output per
+    library (register and shared-memory use from `-Xptxas -v`); raises
+    if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in _SIGNATURES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (
+            subprocess.Popen(
+                _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            ),
+            tmp,
+            out,
+        )
+    logs = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LOADED[name] = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (its `cudaGetLastError`)."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

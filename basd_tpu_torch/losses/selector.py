@@ -1,0 +1,162 @@
+"""Spectrally-adaptive Grassmannian layer selector, batched
+(`basd_tpu/losses/selector.py`).
+
+One Gram reduction per side serves the MP ranks and the subspaces; bases
+are K-capped by subspace iteration; all (P, L) masked principal-angle
+spectra are one batch. Teacher statistics carry no gradient; the student
+eigenbasis and the principal-angle spectrum do, so gradients reach the P
+temperatures and the student tokens through the mixing weights.
+
+Dtype contract: teacher tokens are consumed in their compute dtype (the
+projection upcasts the bf16-rounded operands and multiplies in fp32); the
+mixed teacher tokens are stored back in the teacher dtype; everything else
+is fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from basd_tpu_torch.device import resolve_device
+from basd_tpu_torch.models.teacher import extract_intermediates
+from basd_tpu_torch.spectral import (
+    marchenko_pastur_rank,
+    marchenko_pastur_rank_gram,
+    masked_principal_angle_distance,
+    topk_basis_gram,
+    topk_basis_gram_nograd,
+)
+
+_DEFAULT_SUBSPACE_K = 96
+
+
+class SelectorState(NamedTuple):
+    log_temperatures: torch.Tensor  # (P,) learnable
+    proj_s: torch.Tensor  # (D_s, D_s) frozen random orthogonal
+    proj_t: torch.Tensor  # (D_s, D_t) frozen random semi-orthogonal
+
+
+def _orthogonal(shape, generator: torch.Generator) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32)
+    return torch.nn.init.orthogonal_(w, generator=generator)
+
+
+def init_selector(
+    seed: int, num_extraction_points: int, student_dim: int, teacher_dim: int,
+    *, device=None,
+) -> SelectorState:
+    """Random orthogonal projections drawn on the CPU from `seed` (so every
+    device gets the same ones) and temperatures with softplus(x) = 1. The
+    log-temperatures require grad; the projections do not."""
+    dev = resolve_device(device)
+    g = torch.Generator().manual_seed(seed)
+    proj_s = _orthogonal((student_dim, student_dim), g)
+    proj_t = _orthogonal((student_dim, teacher_dim), g)
+    log_temps = torch.full(
+        (num_extraction_points,), math.log(math.e - 1.0), dtype=torch.float32
+    )
+    return SelectorState(
+        log_temps.to(dev).requires_grad_(True), proj_s.to(dev), proj_t.to(dev)
+    )
+
+
+def temperatures(state: SelectorState) -> torch.Tensor:
+    return F.softplus(state.log_temperatures)
+
+
+def _project(tokens: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """(L, M, D) tokens x (E, D) projection -> (L, M, E) fp32, from operands
+    rounded to the tokens' dtype."""
+    return tokens.float() @ proj.to(tokens.dtype).float().T
+
+
+def calibrate_subspace_k(
+    teacher,
+    student_dim: int,
+    calib_images: torch.Tensor,
+    *,
+    seed: int,
+    num_extraction_points: int,
+    margin: int = 16,
+) -> int:
+    """Staging-time `subspace_k`: the largest teacher-layer MP rank on a
+    calibration batch, measured through the production projection (the
+    selector of seed + 1), plus `margin`, rounded up to a multiple of 8 and
+    capped at student_dim - 1."""
+    sel = init_selector(
+        seed + 1, num_extraction_points, student_dim, teacher.spec.embed_dim,
+        device=calib_images.device,
+    )
+    tokens, _ = extract_intermediates(teacher, calib_images)
+    l = tokens.shape[0]
+    with torch.no_grad():
+        z_t = _project(tokens.reshape(l, -1, tokens.shape[-1]), sel.proj_t)
+        max_rank = int(marchenko_pastur_rank(z_t).max())
+    k = min(student_dim - 1, 8 * -(-(max_rank + margin) // 8))
+    print(f"subspace_k_calibrated max_rank={max_rank} k={k}")
+    return k
+
+
+def select_and_mix(
+    state: SelectorState,
+    student_tokens: torch.Tensor,  # (P, B, N_s, D_s)
+    teacher_tokens: torch.Tensor,  # (L, B, N_t, D_t)
+    teacher_importance: torch.Tensor,  # (L, B, N_t)
+    *,
+    subspace_k: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Soft-select teacher layers per extraction point. Returns
+    (mixed_tokens (P, B, N_t, D_t), mixed_importance (P, B, N_t), aux)."""
+    p, b, n_s, d_s = student_tokens.shape
+    l, _, n_t, d_t = teacher_tokens.shape
+    if subspace_k is None:
+        subspace_k = min(_DEFAULT_SUBSPACE_K, d_s - 1)
+    k = min(subspace_k, d_s - 1, b * n_s, b * n_t)
+
+    proj_t = state.proj_t.detach()
+    proj_s = state.proj_s.detach()
+
+    # ---- teacher statistics (no gradient) ----
+    with torch.no_grad():
+        z_t = _project(teacher_tokens.reshape(l, b * n_t, d_t), proj_t)
+        m_t = b * n_t
+        g_t = z_t.transpose(-1, -2) @ z_t
+        mu_t = z_t.mean(dim=-2)
+        ranks = torch.clamp(marchenko_pastur_rank_gram(g_t, m_t), 1, k)
+        g_ct = g_t - m_t * mu_t[:, :, None] * mu_t[:, None, :]
+    basis_t, svals_t = topk_basis_gram_nograd(g_ct, k)  # (L, D_s, K), (L, K)
+
+    # ---- student subspaces (differentiable) ----
+    z_s = student_tokens.float().reshape(p, b * n_s, d_s) @ proj_s.T
+    m_s = b * n_s
+    g_s = z_s.transpose(-1, -2) @ z_s
+    mu_s = z_s.mean(dim=-2)
+    g_cs = g_s - m_s * mu_s[:, :, None] * mu_s[:, None, :]
+    basis_s, _ = topk_basis_gram(g_cs, k)  # (P, D_s, K)
+
+    # ---- spectrally-weighted principal angles, all (P, L) pairs ----
+    d2 = masked_principal_angle_distance(
+        basis_s[:, None], basis_t[None], svals_t[None], ranks[None]
+    )  # (P, L)
+
+    tau = temperatures(state)
+    weights = torch.softmax(-d2 / tau[:, None], dim=-1)  # (P, L)
+
+    mixed_tokens = (
+        weights @ teacher_tokens.float().reshape(l, -1)
+    ).reshape(p, b, n_t, d_t).to(teacher_tokens.dtype)
+    mixed_importance = (
+        weights @ teacher_importance.float().reshape(l, -1)
+    ).reshape(p, b, n_t)
+
+    aux = {
+        "mixing_weights": weights,
+        "grassmann_d2": d2,
+        "mp_ranks": ranks,
+        "temperatures": tau,
+    }
+    return mixed_tokens, mixed_importance, aux

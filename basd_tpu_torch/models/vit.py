@@ -1,0 +1,282 @@
+"""Vision Transformer (DeiT / DINOv2 family) that returns its
+intermediates: the port of `basd_tpu/models/vit.py`.
+
+The forward returns (logits, per-layer patch tokens, per-layer CLS
+attention importance) so no hooks are needed. Parameters are fp32 with
+timm/DINOv2 state-dict keys; every layer casts its inputs and weights to
+`ViTConfig.dtype` (bf16 on the main path) as flax's `dtype=` does, while
+LayerNorm statistics, GELU, the softmax and the CLS importance run in fp32
+and the classifier head in fp32. Images are (B, H, W, 3), as in the JAX
+package. Attention inside the kernel gate goes through
+`ops.attention.fused_attention` (the hand-written kernels on the card).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from basd_tpu_torch.ops.activations import gelu
+from basd_tpu_torch.ops.attention import (
+    fused_attention,
+    supports_fused,
+    xla_attention_ref,
+)
+
+# flax's truncated_normal samples a standard normal cut at +-2 and rescales
+# it to the requested stddev; torch's trunc_normal_ cuts N(0, std) instead
+_TRUNC_STD = 0.87962566103423978
+_LN_EPS = 1e-6  # flax LayerNorm default
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    img_size: int = 224
+    patch_size: int = 16
+    embed_dim: int = 192
+    depth: int = 12
+    num_heads: int = 3
+    mlp_ratio: float = 4.0
+    num_classes: int = 1000
+    drop_path_rate: float = 0.0
+    has_cls_token: bool = True
+    # DINOv2 LayerScale gamma init (1e-5); None = plain ViT
+    layer_scale_init: float | None = None
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+
+class ViTOutput(NamedTuple):
+    logits: torch.Tensor  # (B, num_classes) fp32
+    tokens: torch.Tensor  # (P, B, N, D) post-block tokens, CLS stripped
+    importance: torch.Tensor  # (P, B, N) fp32 attention importance
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
+    return F.layer_norm(
+        x.float(), layer.normalized_shape, layer.weight, layer.bias, _LN_EPS
+    ).to(x.dtype)
+
+
+def _trunc_normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
+    s = std / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=s, a=-2.0 * s, b=2.0 * s, generator=g)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on the residual branch."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool, generator: torch.Generator | None):
+        if not train or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
+                       generator=generator)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention returning (tokens, CLS importance)."""
+
+    def __init__(self, dim: int, num_heads: int, has_cls_token: bool):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.has_cls_token = has_cls_token
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def _cls_importance(self, q, k, scale):
+        """CLS-row attention over patch keys, mean over heads, in fp32 from
+        the unscaled (B, N, D) q and k."""
+        b, n, d = k.shape
+        prod = k.float() * q[:, :1].float()  # (B, N, D)
+        cls_logits = prod.reshape(b, n, self.num_heads, -1).sum(-1)
+        cls_logits = cls_logits.transpose(1, 2) * scale  # (B, H, N)
+        return torch.softmax(cls_logits, dim=-1)[:, :, 1:].mean(dim=1)
+
+    def forward(self, x, dtype):
+        if not self.has_cls_token:
+            raise NotImplementedError(
+                "no-CLS attention importance is not ported yet (ROADMAP M6)"
+            )
+        b, n, _ = x.shape
+        d = self.dim
+        hd = d // self.num_heads
+        scale = hd**-0.5
+        qkv = _linear(x, self.qkv, dtype)  # (B, N, 3D)
+        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+        q_scaled = (q.float() * scale).to(dtype)
+        if supports_fused(n, d, hd):
+            out = fused_attention(q_scaled, k, v, hd)
+        else:
+            out = xla_attention_ref(q_scaled, k, v, hd)
+        out = _linear(out, self.proj, dtype)
+        return out, self._cls_importance(q, k, scale)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x, dtype):
+        return _linear(gelu(_linear(x, self.fc1, dtype)), self.fc2, dtype)
+
+
+class LayerScale(nn.Module):
+    """DINOv2 naming: module `ls1`/`ls2`, parameter `gamma`."""
+
+    def __init__(self, dim: int, init: float):
+        super().__init__()
+        self.init = init
+        self.gamma = nn.Parameter(torch.full((dim,), init))
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTConfig, drop_path: float):
+        super().__init__()
+        d = cfg.embed_dim
+        self.norm1 = nn.LayerNorm(d, eps=_LN_EPS)
+        self.attn = Attention(d, cfg.num_heads, cfg.has_cls_token)
+        self.norm2 = nn.LayerNorm(d, eps=_LN_EPS)
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+        if cfg.layer_scale_init is not None:
+            self.ls1 = LayerScale(d, cfg.layer_scale_init)
+            self.ls2 = LayerScale(d, cfg.layer_scale_init)
+        else:
+            self.ls1 = self.ls2 = nn.Identity()
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
+
+    def forward(self, x, dtype, train, generator):
+        y, importance = self.attn(_layer_norm(x, self.norm1), dtype)
+        x = x + self.drop_path1(self.ls1(y), train, generator)
+        y = self.mlp(_layer_norm(x, self.norm2), dtype)
+        x = x + self.drop_path2(self.ls2(y), train, generator)
+        return x, importance
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(3, dim, patch_size, stride=patch_size)
+
+
+class VisionTransformer(nn.Module):
+    """DeiT-style ViT. `capture_layers` selects the blocks whose post-block
+    tokens (CLS stripped) and importance vectors are returned. Call
+    `init_weights(seed)` (the entry points do) for the JAX package's
+    initialization."""
+
+    def __init__(self, config: ViTConfig, capture_layers: tuple[int, ...] = ()):
+        super().__init__()
+        cfg = self.config = config
+        self.capture_layers = tuple(capture_layers)
+        d = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, d)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        n_tok = cfg.num_patches + int(cfg.has_cls_token)
+        self.pos_embed = nn.Parameter(torch.zeros(1, n_tok, d))
+        self.blocks = nn.ModuleList(
+            Block(
+                cfg,
+                cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
+                if cfg.drop_path_rate > 0 else 0.0,
+            )
+            for i in range(cfg.depth)
+        )
+        self.norm = nn.LayerNorm(d, eps=_LN_EPS)
+        if cfg.num_classes > 0:
+            self.head = nn.Linear(d, cfg.num_classes)
+
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> None:
+        """The JAX package's initializers, drawn from a CPU generator seeded
+        with `seed` (the same weights on every device): fan-in truncated
+        normal for linear kernels, fan-out normal for the patch conv,
+        truncated normal(0.02) for cls/pos, zero biases."""
+        g = torch.Generator().manual_seed(seed)
+
+        def draw(p, fill):
+            cpu = torch.empty(p.shape, dtype=p.dtype)
+            fill(cpu)
+            p.copy_(cpu)
+
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                std = math.sqrt(2.0 / mod.in_features)
+                draw(mod.weight, lambda w: _trunc_normal_(w, std, g))
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Conv2d):
+                kh, kw = mod.kernel_size
+                std = math.sqrt(2.0 / (kh * kw * mod.out_channels))
+                draw(mod.weight, lambda w: w.normal_(0.0, std, generator=g))
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, LayerScale):
+                mod.gamma.fill_(mod.init)
+        draw(self.cls_token, lambda w: _trunc_normal_(w, 0.02, g))
+        draw(self.pos_embed, lambda w: _trunc_normal_(w, 0.02, g))
+
+    def forward(
+        self,
+        x: torch.Tensor,  # (B, H, W, 3) float
+        *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> ViTOutput:
+        cfg = self.config
+        dt = cfg.dtype
+        b = x.shape[0]
+        conv = self.patch_embed.proj
+        x = F.conv2d(
+            x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt), conv.bias.to(dt),
+            stride=cfg.patch_size,
+        )
+        x = x.flatten(2).transpose(1, 2)  # (B, N, D), row-major patches
+        n = x.shape[1]
+        if cfg.has_cls_token:
+            x = torch.cat([self.cls_token.to(dt).expand(b, 1, -1), x], dim=1)
+        x = x + self.pos_embed.to(dt)
+
+        tokens, imps = [], []
+        for i, blk in enumerate(self.blocks):
+            x, importance = blk(x, dt, train, generator)
+            if i in self.capture_layers:
+                tokens.append(x[:, 1:] if cfg.has_cls_token else x)
+                imps.append(importance)
+
+        x = _layer_norm(x, self.norm)
+        pooled = x[:, 0] if cfg.has_cls_token else x.mean(dim=1)
+        if cfg.num_classes > 0:
+            logits = F.linear(pooled.float(), self.head.weight, self.head.bias)
+        else:
+            logits = pooled.float()
+        if tokens:
+            tok, imp = torch.stack(tokens), torch.stack(imps)
+        else:
+            tok = x.new_zeros((0, b, n, cfg.embed_dim))
+            imp = x.new_zeros((0, b, n), dtype=torch.float32)
+        return ViTOutput(logits=logits, tokens=tok, importance=imp)

@@ -1,0 +1,527 @@
+#!/usr/bin/env python3
+"""Smoke run of the BASD PyTorch port (`basd_tpu_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the exit code is not 0:
+  1. device: the card's name and power limit (nvidia-smi);
+  2. build: every kernel of the main path from basd_tpu_torch/csrc (nvcc,
+     sm_90a, one process per source, all at once);
+  3. staging: the Table-3 models at full width (DeiT-Tiny/4 student at
+     32 px, DINOv2 ViT-B/14 teacher, bf16, random weights from seeds,
+     batch 128) and the calibrated subspace K;
+  4. kernels: each kernel against its plain torch version on the card at
+     the main-path shapes, with its stated tolerance, timed beside the
+     plain version and a PyTorch library yardstick;
+  5. main path: train steps of `make_train_step(augment=False)`, with the
+     kernels' launch counters reset just before and read just after;
+  6. reference: one small configuration stepped on the card and on the
+     CPU (plain versions), losses and ranks compared;
+  7. profile: one main-path step under torch.profiler, device time by
+     kernel;
+then a JSON line of the kernels, the card's name and power limit, and the
+result line {"ok": true, "device": {...}} last.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+MAIN_STEPS = 6
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+TEACHER_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+DATASET_STATS = ((0.507, 0.487, 0.441), (0.267, 0.256, 0.276))
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card",
+              file=sys.stderr)
+        return 2
+
+    import torch.nn.functional as F
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.losses import (
+        calibrate_subspace_k,
+        extraction_points,
+        init_selector,
+    )
+    from basd_tpu_torch.models import create_student, load_teacher
+    from basd_tpu_torch.ops import attention as attn
+    from basd_tpu_torch.ops.preprocess import eval_view
+    from basd_tpu_torch.spectral import jacobi
+    from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
+    from basd_tpu_torch.spectral.ops import use_jacobi
+    from basd_tpu_torch.training.train_step import make_train_step
+
+    # fp32 means fp32 here: no TF32 in matmuls or in cuDNN convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    peak_flops = {torch.bfloat16: 989e12, torch.float32: 67e12}
+    dev = torch.device("cuda", 0)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def timed_ms(fn, reps: int) -> float:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak_flops[dtype] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def rel_err(got, want) -> tuple[float, float]:
+        diff = (got.float() - want.float()).abs().max().item()
+        return diff, diff / max(want.float().abs().max().item(), 1e-30)
+
+    # ---- 1. device ----
+    card = card_line()
+    print(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    logs = kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(sorted(logs)) or 'cached'})")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}]: {line.strip()}")
+
+    # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
+    img, batch, num_classes, patch = 32, 128, 100, 4
+    raw = img + 2 * patch
+    teacher = load_teacher("dinov2_vitb14", img_size=img, dtype=bf16, device=dev)
+    points = extraction_points(12, 4)
+    student, cfg = create_student(
+        "vit_tiny_patch16", num_classes=num_classes, drop_path_rate=0.05,
+        img_size=img, arch_overrides={"patch_size": patch},
+        capture_layers=points, dtype=bf16, device=dev,
+    )
+    selector = init_selector(1, len(points), cfg.embed_dim,
+                             teacher.spec.embed_dim, device=dev)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(
+        (rng.random((batch, raw, raw, 3)) * 255).astype(np.uint8)).to(dev)
+    labels = torch.from_numpy(
+        rng.integers(0, num_classes, batch, dtype=np.int64)).to(dev)
+    calib = eval_view(images, img, img / raw, *TEACHER_STATS)
+    k_cal = calibrate_subspace_k(teacher, cfg.embed_dim, calib, seed=0,
+                                 num_extraction_points=len(points))
+    k3_on_path = use_jacobi((len(points), k_cal, k_cal))
+    print(f"staging: student D={cfg.embed_dim} heads={cfg.num_heads} "
+          f"tokens={cfg.num_patches + 1}; teacher D={teacher.spec.embed_dim} "
+          f"tokens={teacher.num_tokens + 1}; K={k_cal} "
+          f"(Jacobi kernel gate 16 <= K <= 96: {k3_on_path})")
+
+    # ---- 4. kernels against their plain versions ----
+    gen = torch.Generator(device=dev).manual_seed(0)
+    report = {}
+
+    def attention_inputs(b, n, d, hd, dtype):
+        mk = lambda s: (torch.randn((b, n, d), device=dev, generator=gen) * s).to(dtype)
+        return mk(hd**-0.5), mk(1.0), mk(1.0)
+
+    def sdpa_layout(x, hd):
+        b, n, d = x.shape
+        return x.reshape(b, n, d // hd, hd).transpose(1, 2).contiguous()
+
+    att_cases = [("student", 128, 65, 192, 3), ("teacher", 128, 5, 768, 12)]
+    for label, b, n, d, h in att_cases:
+        hd = d // h
+        for dtype in (bf16, f32):
+            tol = 2e-2 if dtype == bf16 else 1e-5
+            q, k, v = attention_inputs(b, n, d, hd, dtype)
+            got = attn._attention_forward_cuda(q, k, v, hd)
+            want = attn.attention_forward_plain(q, k, v, hd)
+            torch.cuda.synchronize()
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            worst = max(e[1] for e in errs)
+            if not worst <= tol:
+                raise AssertionError(
+                    f"attention_fwd {label} {dtype}: rel err {worst} > {tol}")
+            itm = q.element_size()
+            nbytes = 4 * b * n * d * itm + 2 * b * n * h * 4
+            flops = 4 * b * h * n * n * hd
+            bnd, by = bound(nbytes, flops, dtype)
+            qh, kh, vh = (sdpa_layout(x, hd) for x in (q, k, v))
+            row = dict(
+                shape=[b, n, d], heads=h, dtype=str(dtype).split(".")[-1],
+                max_abs_err=errs[0][0], rel_err=worst, tol=tol,
+                ms=timed_ms(lambda: attn._attention_forward_cuda(q, k, v, hd), 50),
+                plain_ms=timed_ms(lambda: attn.attention_forward_plain(q, k, v, hd), 20),
+                library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, scale=1.0), 50),
+                bound_ms=bnd, bound_by=by,
+            )
+            report.setdefault("attention_fwd", {})[
+                f"{label} B={b} N={n} D={d} H={h} {row['dtype']}"] = row
+            print(f"kernel attention_fwd {label} {row['dtype']}: rel err "
+                  f"{worst:.3g} (tol {tol}) ms {row['ms']:.4f} plain "
+                  f"{row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} bound "
+                  f"{bnd:.4f} ({by})")
+
+    label, b, n, d, h = att_cases[0]
+    hd = d // h
+    for dtype in (bf16, f32):
+        tol = 2e-2 if dtype == bf16 else 1e-5
+        q, k, v = attention_inputs(b, n, d, hd, dtype)
+        o, m, denom = attn.attention_forward_plain(q, k, v, hd)
+        do = torch.randn((b, n, d), device=dev, generator=gen).to(dtype)
+        dd = (do.float() * o.float()).reshape(b, n, h, hd).sum(-1).contiguous()
+        args = (q, k, v, do, m, denom, dd, hd)
+        got = attn._attention_backward_cuda(*args)
+        want = attn.attention_backward_plain(*args)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        worst = max(e[1] for e in errs)
+        if not worst <= tol:
+            raise AssertionError(
+                f"attention_bwd {label} {dtype}: rel err {worst} > {tol}")
+        itm = q.element_size()
+        nbytes = 7 * b * n * d * itm + 3 * b * n * h * 4
+        flops = 10 * b * h * n * n * hd
+        bnd, by = bound(nbytes, flops, dtype)
+        qh, kh, vh = (sdpa_layout(x, hd).requires_grad_(True) for x in (q, k, v))
+        oh = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+        doh = sdpa_layout(do, hd)
+        row = dict(
+            shape=[b, n, d], heads=h, dtype=str(dtype).split(".")[-1],
+            max_abs_err=max(e[0] for e in errs), rel_err=worst, tol=tol,
+            ms=timed_ms(lambda: attn._attention_backward_cuda(*args), 50),
+            plain_ms=timed_ms(lambda: attn.attention_backward_plain(*args), 20),
+            library_ms=timed_ms(lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), doh, retain_graph=True), 50),
+            bound_ms=bnd, bound_by=by,
+        )
+        report.setdefault("attention_bwd", {})[
+            f"{label} B={b} N={n} D={d} H={h} {row['dtype']}"] = row
+        print(f"kernel attention_bwd {label} {row['dtype']}: rel err "
+              f"{worst:.3g} (tol {tol}) ms {row['ms']:.4f} plain "
+              f"{row['plain_ms']:.4f} sdpa-bwd {row['library_ms']:.4f} bound "
+              f"{bnd:.4f} ({by})")
+
+    # Attention at the edges of the kernel gate, which the main path does
+    # not reach: N=1, N=512 with head_dim 128 (over 48 KB of shared memory),
+    # D=2048, odd N and head_dim 32; q, k, v are strided views of one
+    # (B, N, 3D) tensor as in the model. At N=1 the softmax over one key is
+    # constant, so dq and dk are 0 in exact arithmetic and both sides return
+    # the rounding noise of dO.v - dd: there only o, m, denom and dv are
+    # compared.
+    for b, n, d, h in [(2, 512, 256, 2), (3, 1, 64, 1), (2, 17, 96, 3),
+                       (1, 33, 2048, 16)]:
+        hd = d // h
+        for dtype in (bf16, f32):
+            tol = 2e-2 if dtype == bf16 else 1e-5
+            qkv = torch.randn((b, n, 3 * d), device=dev, generator=gen).to(dtype)
+            q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+            do = torch.randn((b, n, d), device=dev, generator=gen).to(dtype)
+            got = attn._attention_forward_cuda(q, k, v, hd)
+            want = attn.attention_forward_plain(q, k, v, hd)
+            o, m, denom = want
+            dd = (do.float() * o.float()).reshape(b, n, h, hd).sum(-1).contiguous()
+            args = (q, k, v, do, m, denom, dd, hd)
+            got += attn._attention_backward_cuda(*args)
+            want += attn.attention_backward_plain(*args)
+            torch.cuda.synchronize()
+            compared = (0, 1, 2, 5) if n == 1 else range(6)
+            worst = max(rel_err(got[i], want[i])[1] for i in compared)
+            if not worst <= tol:
+                raise AssertionError(
+                    f"attention edge {(b, n, d, h)} {dtype}: rel err {worst} > {tol}")
+            print(f"kernel attention edge B={b} N={n} D={d} H={h} "
+                  f"{str(dtype).split('.')[-1]}: fwd+bwd rel err {worst:.3g} "
+                  f"(tol {tol})")
+
+    # K3 on the main path's own eigh inputs, recorded from one selector call
+    # on this batch: the two Rayleigh-Ritz batches and the angle spectra.
+    # The kernel runs the plain version's rotations, so their eigenvalues
+    # agree to rounding: 1e-4 of max|w|; V stays orthogonal to 5e-5. The
+    # sweeps=6 eigenvalue and reconstruction errors against float64 LAPACK
+    # are the main path's convergence (off-diagonal mass left in clusters of
+    # near-equal eigenvalues); they are reported, not checked.
+    from basd_tpu_torch.losses import select_and_mix
+    from basd_tpu_torch.models import extract_intermediates
+    from basd_tpu_torch.spectral import ops as spectral_ops
+
+    def jacobi_timing(a):
+        """The kernel at sweeps=6 as the main path calls it, timed beside the
+        plain version and torch.linalg.eigh, with its bound."""
+        bsz, nn_ = a.shape[0], a.shape[-1]
+        n_even = nn_ + nn_ % 2
+        steps = (n_even - 1) * 6
+        # per step: the 2x2 block rotations of A (6 n^2) and of V^T (3 n^2)
+        flops = bsz * steps * 9 * n_even * n_even
+        nbytes = 4 * bsz * (2 * nn_ * nn_ + nn_)
+        bnd, by = bound(nbytes, flops, f32)
+        return dict(
+            ms=timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=6), 20),
+            plain_ms=timed_ms(lambda: jacobi.jacobi_eigh(a, sweeps=6), 3),
+            library_ms=timed_ms(lambda: torch.linalg.eigh(a), 5),
+            bound_ms=bnd, bound_by=by,
+        )
+
+    def eig_residuals(w, vec, a):
+        """Reconstruction ||A - V diag(w) V^T|| / ||A|| and orthogonality
+        max |V^T V - I|, worst over the batch, in float64."""
+        v64 = vec.double()
+        recon = v64 @ torch.diag_embed(w.double()) @ v64.transpose(-1, -2)
+        rec_err = (torch.linalg.matrix_norm(recon - a.double())
+                   / torch.linalg.matrix_norm(a.double())).max().item()
+        eye = torch.eye(a.shape[-1], dtype=torch.float64, device=dev)
+        return rec_err, (v64.transpose(-1, -2) @ v64 - eye).abs().max().item()
+
+    recorded = []
+    solver = spectral_ops.kernel_jacobi_eigh
+
+    def recording_solver(a, sweeps):
+        recorded.append(a.detach().clone())
+        return solver(a, sweeps=sweeps)
+
+    with torch.no_grad():
+        t_tok, t_imp = extract_intermediates(teacher, calib)
+        s_out = student(eval_view(images, img, img / raw, *DATASET_STATS))
+        spectral_ops.kernel_jacobi_eigh = recording_solver
+        try:
+            select_and_mix(selector, s_out.tokens, t_tok, t_imp, subspace_k=k_cal)
+        finally:
+            spectral_ops.kernel_jacobi_eigh = solver
+    names = ["teacher Rayleigh-Ritz", "student Rayleigh-Ritz", "principal angles"]
+    if len(recorded) != (3 if k3_on_path else 0):
+        raise AssertionError(f"{len(recorded)} Jacobi eighs in one selector call")
+    for what, a in zip(names, recorded):
+        a = a.reshape(-1, a.shape[-1], a.shape[-1]).contiguous()
+        bsz, nn_ = a.shape[0], a.shape[-1]
+        w, vec = kernel_jacobi_eigh(a, sweeps=6)
+        wp, _ = jacobi.jacobi_eigh(a, sweeps=6)
+        w64 = torch.linalg.eigvalsh(a.double()).flip(-1)
+        torch.cuda.synchronize()
+        scale = w64.abs().amax(-1)
+        plain_rel = ((w - wp).abs().amax(-1) / scale).max().item()
+        eig6_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
+        rec_err, orth_err = eig_residuals(w, vec, a)
+        if not (plain_rel <= 1e-4 and orth_err <= 5e-5):
+            raise AssertionError(
+                f"jacobi_eigh {what}: vs plain {plain_rel} (tol 1e-4), orth "
+                f"{orth_err} (tol 5e-5)")
+        row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
+                   eig6_err=eig6_err, recon_err=rec_err, orth_err=orth_err,
+                   **jacobi_timing(a))
+        report.setdefault("jacobi_eigh", {})[f"{what} ({bsz}, {nn_}, {nn_})"] = row
+        print(f"kernel jacobi_eigh {what} {(bsz, nn_, nn_)} (main-path input): "
+              f"vs plain {plain_rel:.3g} (tol 1e-4); orth {orth_err:.3g} (tol "
+              f"5e-5); sweeps=6 eig vs LAPACK {eig6_err:.3g}, recon "
+              f"{rec_err:.3g}; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+              f"linalg.eigh {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
+              f"({row['bound_by']})")
+
+    # K3 accuracy on Grams with a wide (1e0..1e-6) spectrum, converged
+    # (sweeps=12), against float64 LAPACK. Eigenvalues (of max|w|),
+    # reconstruction and orthogonality within 5e-5, or 1e-4 above n=48: the
+    # fp32 floor grows with the rotation count (560 steps at n=48, 1140 at
+    # n=96) and sits above 1e-5. The kernel and the plain version differ by
+    # their rounding, within 1e-4 of max|w|.
+    for bsz, nn_ in [(12, 48), (48, 48), (8, 33), (4, 96), (3, 95), (5, 16)]:
+        tol = 5e-5 if nn_ <= 48 else 1e-4
+        x = torch.randn((bsz, nn_, 2 * nn_), device=dev, generator=gen)
+        x = x * torch.logspace(0, -3, 2 * nn_, device=dev)
+        a = x @ x.transpose(-1, -2)
+        w, _ = kernel_jacobi_eigh(a, sweeps=6)
+        wp12, _ = jacobi.jacobi_eigh(a, sweeps=12)
+        w12, vec = kernel_jacobi_eigh(a, sweeps=12)
+        w64 = torch.linalg.eigvalsh(a.double()).flip(-1)
+        torch.cuda.synchronize()
+        scale = w64.abs().amax(-1)
+        eig6_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
+        eig_err = ((w12.double() - w64).abs().amax(-1) / scale).max().item()
+        plain_rel = ((w12 - wp12).abs().amax(-1) / scale).max().item()
+        rec_err, orth_err = eig_residuals(w12, vec, a)
+        if not (plain_rel <= 1e-4 and eig_err <= tol and rec_err <= tol
+                and orth_err <= tol):
+            raise AssertionError(
+                f"jacobi_eigh {(bsz, nn_, nn_)}: vs plain {plain_rel} eig "
+                f"{eig_err} recon {rec_err} orth {orth_err} (tol {tol})")
+        report.setdefault("jacobi_eigh", {})[f"wide spectrum ({bsz}, {nn_}, {nn_})"] = dict(
+            max_abs_err=(w12 - wp12).abs().max().item(), rel_err=plain_rel,
+            eig6_err=eig6_err, eig_err=eig_err, recon_err=rec_err,
+            orth_err=orth_err, **(jacobi_timing(a) if nn_ == 48 else {}))
+        print(f"kernel jacobi_eigh wide spectrum {(bsz, nn_, nn_)}: sweeps=12 "
+              f"vs plain {plain_rel:.3g} (tol 1e-4), eig {eig_err:.3g} recon "
+              f"{rec_err:.3g} orth {orth_err:.3g} (tol {tol}); sweeps=6 eig vs "
+              f"LAPACK {eig6_err:.3g}")
+
+    # ---- 5. the main path ----
+    init_fn, step_fn = make_train_step(
+        student, teacher,
+        learning_rate=5e-4, weight_decay=0.05, warmup_steps=1000,
+        label_smoothing=0.01, img_size=img, crop_ratio=img / raw,
+        teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
+        num_classes=num_classes, subspace_k=k_cal, augment=False,
+    )
+    state = init_fn(0, selector)
+    step_ms = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i in range(MAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step_fn(state, images, labels)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        w = met["mixing_weights"]
+        ranks = met["mp_ranks"]
+        if not np.isfinite(loss):
+            raise AssertionError(f"step {i}: loss {loss}")
+        if w.shape != (len(points), 12) or \
+                (w.sum(-1) - 1).abs().max().item() > 1e-5:
+            raise AssertionError(f"step {i}: mixing weights {w}")
+        if ranks.min().item() < 1 or ranks.max().item() > k_cal:
+            raise AssertionError(f"step {i}: mp_ranks {ranks.tolist()}")
+        print(f"step {i}: loss {loss:.6f} ce {float(met['ce_loss']):.6f} geo "
+              f"{float(met['geo_loss']):.6f} temps "
+              f"{[round(t, 6) for t in met['temperatures'].tolist()]} "
+              f"mp_ranks {ranks.tolist()} K {k_cal} ms {step_ms[-1]:.2f}")
+    launches = dict(kernels.LAUNCHES)
+    per_step = {"attention_fwd": 24, "attention_bwd": 12,
+                "jacobi_eigh": 3 if k3_on_path else 0}
+    for name, want in per_step.items():
+        if launches[name] != want * MAIN_STEPS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches in {MAIN_STEPS} steps, "
+                f"expected {want} per step")
+    if not k3_on_path:
+        print(f"finding: calibrated K={k_cal} is outside the Jacobi gate, "
+              "the eigh kernel is off the main path")
+    print(f"main path: launches {launches} over {MAIN_STEPS} steps; step ms "
+          f"{step_ms} (median after the first {np.median(step_ms[1:]):.2f}); "
+          f"peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- 6. reference on a small input: card vs CPU plain versions ----
+    def small_run(device):
+        t = load_teacher("vit_mini_patch4", img_size=16, dtype=f32, device=device)
+        pts = extraction_points(4, 2)
+        s, c = create_student("vit_micro_patch4", num_classes=10,
+                              drop_path_rate=0.0, img_size=16,
+                              capture_layers=pts, dtype=f32, device=device)
+        sel = init_selector(1, len(pts), c.embed_dim, t.spec.embed_dim,
+                            device=device)
+        ini, stp = make_train_step(
+            s, t, learning_rate=1e-3, weight_decay=0.05, warmup_steps=5,
+            label_smoothing=0.1, img_size=16, crop_ratio=16 / 20,
+            teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
+            num_classes=10, augment=False,
+        )
+        st = ini(0, sel)
+        r = np.random.default_rng(42)
+        im = torch.from_numpy((r.random((8, 20, 20, 3)) * 255).astype(np.uint8))
+        lb = torch.from_numpy(r.integers(0, 10, 8, dtype=np.int64))
+        out = []
+        for _ in range(2):
+            st, mt = stp(st, im.to(device), lb.to(device))
+            out.append((float(mt["loss"]), mt["mp_ranks"].tolist()))
+        return out
+
+    kernels.reset_launches()
+    on_card = small_run(dev)
+    small_launches = dict(kernels.LAUNCHES)
+    on_cpu = small_run(torch.device("cpu"))
+    for (lc, rc), (lp, rp) in zip(on_card, on_cpu):
+        if rc != rp or not abs(lc - lp) <= 1e-3 * abs(lp):
+            raise AssertionError(f"reference: card {on_card} vs cpu {on_cpu}")
+    print(f"reference: card {on_card} vs cpu {on_cpu} (loss rtol 1e-3, ranks "
+          f"equal); card launches {small_launches}")
+
+    # ---- 7. one profiled main-path step ----
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, met = step_fn(state, images, labels)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: user annotations (the optimizer's step range)
+    # also carry device time and would count it twice
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3
+    print(f"profile: step {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev_events)} "
+          "device kernels")
+    for e in prof.key_averages():
+        if e.key.startswith("basd:") and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            print(f"  stage {e.key[5:]:<16s} host {e.cpu_time_total / 1e3:9.3f} ms")
+    for e in sorted(dev_events, key=dev_us, reverse=True)[:12]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    # ---- result lines ----
+    meta = {
+        "attention_fwd": ("basd_tpu_torch/csrc/attention.cu",
+                          "basd_tpu/ops/attention.py:84",
+                          "student B=128 N=65 D=192 H=3 bfloat16"),
+        "attention_bwd": ("basd_tpu_torch/csrc/attention.cu",
+                          "basd_tpu/ops/attention.py:114",
+                          "student B=128 N=65 D=192 H=3 bfloat16"),
+        "jacobi_eigh": ("basd_tpu_torch/csrc/jacobi_eigh.cu",
+                        "basd_tpu/spectral/pallas_jacobi.py:33",
+                        f"principal angles ({len(points) * 12}, {k_cal}, {k_cal})"
+                        if k3_on_path else "wide spectrum (48, 48, 48)"),
+    }
+    measured = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
+                "orth_err")
+    entries = []
+    for name, (src, replaces, main_case) in meta.items():
+        row = report[name][main_case]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "status": "ok",
+            "main_case": main_case,
+            "cases": {case: {k: r[k] for k in measured if k in r}
+                      for case, r in report[name].items()},
+        })
+    print(json.dumps({"kernels": entries, "step_ms": step_ms}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

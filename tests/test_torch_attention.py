@@ -1,0 +1,110 @@
+"""Attention K1/K2 plain versions (`basd_tpu_torch/ops/attention.py`) held
+against the JAX package's Pallas kernels in interpret mode and its
+`xla_attention_ref`, at the main path's head layouts (student D=192 H=3,
+teacher D=768 H=12, head_dim 64) on a small batch."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from basd_tpu.ops import attention as jattn
+from basd_tpu_torch.ops import attention as tattn
+from test_torch_helpers import assert_close, t32
+
+torch.set_num_threads(1)
+
+SHAPES = [(2, 65, 192, 3), (2, 5, 768, 12)]
+
+
+def _inputs(b, n, d, h, seed=0):
+    rng = np.random.default_rng(seed)
+    hd = d // h
+    q = rng.standard_normal((b, n, d)).astype(np.float32) * hd**-0.5
+    k = rng.standard_normal((b, n, d)).astype(np.float32)
+    v = rng.standard_normal((b, n, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,n,d,h", SHAPES)
+def test_forward_matches_pallas_interpret_and_stats(b, n, d, h):
+    """fp32: o, m and denom agree with `_fwd_call(interpret=True)` and o
+    with `xla_attention_ref` to 1e-5 of scale (fp32 sums in another order)."""
+    hd = d // h
+    q, k, v = _inputs(b, n, d, h)
+    o, m, denom = tattn.attention_forward(t32(q), t32(k), t32(v), hd)
+    jo, jm, jd = jattn._fwd_call(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), hd, interpret=True
+    )
+    assert_close(o, jo, 1e-5, "o vs interpret kernel")
+    assert_close(m, jm, 1e-5, "rowmax")
+    assert_close(denom, jd, 1e-5, "denom")
+    ref = jattn.xla_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), hd)
+    assert_close(o, ref, 1e-5, "o vs xla_attention_ref")
+    fused = jattn.fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), hd, True)
+    assert_close(tattn.fused_attention(t32(q), t32(k), t32(v), hd), fused, 1e-5,
+                 "fused_attention")
+
+
+@pytest.mark.parametrize("b,n,d,h", SHAPES)
+def test_gradients_match_jax_vjp(b, n, d, h):
+    """Gradients to all of q, k, v through the port's autograd.Function
+    (plain K2 on the CPU) against jax.vjp of the interpret-mode kernel:
+    1e-5 of scale in fp32."""
+    hd = d // h
+    q, k, v = _inputs(b, n, d, h, seed=1)
+    do = np.random.default_rng(2).standard_normal((b, n, d)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, bb, c: jattn.fused_attention(a, bb, c, hd, True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (t32(x).requires_grad_(True) for x in (q, k, v))
+    out = tattn.fused_attention(tq, tk, tv, hd)
+    out.backward(t32(do))
+    for got, want, name in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
+        assert_close(got, want, 1e-5, f"d{name}")
+
+
+def test_bf16_rounds_e_before_denom():
+    """bf16: the plain K1 follows the Pallas kernel (denom sums the
+    bf16-ROUNDED e), within 2e-3 of the interpret kernel's denom (a few bf16
+    roundings of e may flip where fp32 scores differ in their last bit), and
+    o within 2e-2 of scale (bf16 output)."""
+    b, n, d, h = SHAPES[0]
+    hd = d // h
+    q, k, v = _inputs(b, n, d, h, seed=3)
+    qb, kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jo, jm, jd = jattn._fwd_call(qb, kb, vb, hd, interpret=True)
+    tb = lambda x: torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+    o, m, denom = tattn.attention_forward(tb(qb), tb(kb), tb(vb), hd)
+    assert o.dtype == torch.bfloat16
+    assert_close(denom, jd, 2e-3, "bf16 denom")
+    assert_close(m, jm, 1e-5, "bf16 rowmax")
+    assert_close(o, np.asarray(jo.astype(jnp.float32)), 2e-2, "bf16 o")
+
+
+def test_backward_plain_formula_matches_autograd_of_softmax():
+    """The stats-based backward equals autograd through a plain fp32
+    softmax(q k^T) v (1e-5 of scale), independent of the JAX package."""
+    b, n, d, h = 2, 17, 64, 2
+    hd = d // h
+    q, k, v = (t32(x) for x in _inputs(b, n, d, h, seed=4))
+    do = t32(np.random.default_rng(5).standard_normal((b, n, d)))
+    o, m, denom = tattn.attention_forward_plain(q, k, v, hd)
+    dd = (do * o).reshape(b, n, h, hd).sum(-1).contiguous()
+    got = tattn.attention_backward_plain(q, k, v, do, m, denom, dd, hd)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    split = lambda x: x.reshape(b, n, h, hd).transpose(1, 2)
+    p = torch.softmax(split(qs) @ split(ks).transpose(-1, -2), dim=-1)
+    ref = (p @ split(vs)).transpose(1, 2).reshape(b, n, d)
+    want = torch.autograd.grad(ref, (qs, ks, vs), do)
+    for g, w, name in zip(got, want, "qkv"):
+        assert_close(g, w, 1e-5, f"d{name}")
+
+
+def test_supports_fused_gate_matches_jax():
+    for n, d, hd in [(65, 192, 64), (5, 768, 64), (513, 192, 64),
+                     (65, 192, 24), (65, 4096, 128), (512, 2048, 128)]:
+        assert tattn.supports_fused(n, d, hd) == jattn.supports_fused(n, d, hd)

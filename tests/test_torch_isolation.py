@@ -1,0 +1,117 @@
+"""The port stands alone: no module of `basd_tpu_torch` (nor
+`chip_smoke.py`) imports JAX, flax, optax or the JAX package; entry points
+refuse to fall back to the CPU silently; kernel wrappers give a non-CPU
+tensor to the kernel or raise, never to the plain version."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import basd_tpu_torch
+from basd_tpu_torch.ops import attention as tattn
+from basd_tpu_torch.spectral import jacobi as tjacobi
+from basd_tpu_torch.spectral import jacobi_kernel
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "basd_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([str(PKG)], "basd_tpu_torch.")
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax') or n == 'basd_tpu' or "
+        "n.startswith('basd_tpu.'))\n"
+        "print(len(mods), bad)\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) >= 20  # every module was imported
+
+
+def test_sources_never_name_jax_or_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|basd_tpu)(\.|\s|$)", re.M
+    )
+    files = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        text = f.read_text()
+        assert not pattern.search(text), f
+        assert "import jax" not in text, f
+        assert "basd_tpu." not in text.replace("basd_tpu_torch", ""), f
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it():
+    from basd_tpu_torch.losses import init_selector
+    from basd_tpu_torch.models import create_student, load_teacher
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_student("vit_micro_patch4", num_classes=10, drop_path_rate=0.0,
+                       img_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_teacher("vit_micro_patch4", img_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_selector(0, 2, 64, 96)
+
+
+def _forbid(monkeypatch, module, name):
+    def boom(*a, **k):
+        raise AssertionError(f"{name} ran for a non-CPU tensor")
+
+    monkeypatch.setattr(module, name, boom)
+
+
+def test_wrappers_never_route_a_device_tensor_to_the_plain_version(monkeypatch):
+    """A tensor on another device (`meta` here) raises in the wrapper; the
+    plain version is never called for it."""
+    _forbid(monkeypatch, tattn, "attention_forward_plain")
+    _forbid(monkeypatch, tattn, "attention_backward_plain")
+    _forbid(monkeypatch, tjacobi, "jacobi_eigh")
+    x = torch.empty((2, 65, 192), device="meta")
+    s = torch.empty((2, 65, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tattn.attention_forward(x, x, x, 64)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tattn.attention_backward(x, x, x, x, s, s, s, 64)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        jacobi_kernel.kernel_jacobi_eigh(torch.empty((4, 48, 48), device="meta"))
+
+
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
+    """The CUDA-side checks run before any library is loaded."""
+    q = torch.zeros((2, 600, 128))  # N > 512: outside the kernel gate
+    with pytest.raises(ValueError, match="does not take"):
+        tattn._attention_forward_cuda(q, q, q, 64)
+    h = torch.zeros((2, 65, 192), dtype=torch.float16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        tattn._attention_forward_cuda(h, h, h, 64)
+    with pytest.raises(ValueError, match="even"):
+        jacobi_kernel._jacobi_raw_cuda(torch.zeros((4, 33, 33)), 6)
+    with pytest.raises(ValueError, match="fp32"):
+        jacobi_kernel._jacobi_raw_cuda(torch.zeros((4, 32, 32), dtype=torch.float64), 6)
+
+
+def test_package_docstring_states_the_device_rule():
+    assert "CUDA" in basd_tpu_torch.__doc__ and "CPU" in basd_tpu_torch.__doc__
