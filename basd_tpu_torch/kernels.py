@@ -41,12 +41,17 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # a, w, vt, batch, n, steps, stream
         "basd_jacobi_eigh": [_P] * 3 + [_I] * 3 + [_P],
     },
+    "warp": {
+        # images, out, params, batch, n, channels, stream
+        "basd_warp": [_P] * 3 + [_I] * 3 + [_P],
+    },
 }
 
 LAUNCHES: dict[str, int] = {
     "attention_fwd": 0,
     "attention_bwd": 0,
     "jacobi_eigh": 0,
+    "warp": 0,
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

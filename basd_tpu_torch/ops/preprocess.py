@@ -1,11 +1,23 @@
-"""The deterministic (eval) half of `basd_tpu/ops/preprocess.py`: both
-train views derived on the device from one uint8 (B, H, W, 3) batch."""
+"""Both train views on the device from one uint8 (B, H, W, 3) batch: the
+port of `basd_tpu/ops/preprocess.py`."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from basd_tpu_torch.ops.augment import normalize, resize_bilinear
+from basd_tpu_torch.ops.augment import (
+    AugmentDraws,
+    CropDraws,
+    normalize,
+    random_resized_crop,
+    resize_bilinear,
+    sample_crop,
+    sample_flip,
+    sample_trivial_augment,
+    trivial_augment_wide,
+)
 
 
 def to_float(images_u8: torch.Tensor) -> torch.Tensor:
@@ -44,3 +56,40 @@ def dual_view_eval(
     with the teacher's and the dataset's stats."""
     base = center_crop_resize(to_float(images_u8), img_size, crop_ratio)
     return normalize(base, *teacher_stats), normalize(base, *dataset_stats)
+
+
+class ViewDraws(NamedTuple):
+    """The random draws of one `dual_view` call."""
+
+    crop: CropDraws
+    flip: torch.Tensor  # (B,) bool
+    augment: AugmentDraws
+
+
+def sample_view_draws(generator: torch.Generator, batch: int) -> ViewDraws:
+    return ViewDraws(
+        sample_crop(generator, batch),
+        sample_flip(generator, batch),
+        sample_trivial_augment(generator, batch),
+    )
+
+
+def dual_view(
+    images_u8: torch.Tensor,
+    draws: ViewDraws,
+    *,
+    img_size: int,
+    crop_ratio: float,
+    teacher_stats: tuple,
+    dataset_stats: tuple,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(clean, augmented) train views. clean: the eval transform with the
+    teacher's normalization (feeds the frozen teacher). augmented:
+    RandomResizedCrop, clip, hflip, TrivialAugmentWide and the dataset's
+    normalization (feeds the student); the hflip is folded into the
+    augment's warp."""
+    x = to_float(images_u8)
+    clean = normalize(center_crop_resize(x, img_size, crop_ratio), *teacher_stats)
+    aug = torch.clamp(random_resized_crop(x, draws.crop, img_size), 0.0, 1.0)
+    aug = trivial_augment_wide(aug, draws.augment, flip_mask=draws.flip)
+    return clean, normalize(aug, *dataset_stats)

@@ -1,15 +1,18 @@
 """The BASD train step: the port of `basd_tpu/training/train_step.py`.
 
-One step: both views from one uint8 batch, the frozen teacher's
-intermediates, the student forward with capture, `basd_loss` (selector,
-Procrustes per extraction point, CE + UW-SO), backward, and the
+One step: both views from one uint8 batch (RandomResizedCrop, hflip,
+TrivialAugmentWide and MixUp/CutMix on the student's view), the frozen
+teacher's intermediates, the student forward with capture, `basd_loss`
+(selector, Procrustes per extraction point, CE + UW-SO), backward, and the
 ScheduleFree update of the student and the selector temperatures. PyTorch
-runs eagerly, so the step mutates its state in place.
+runs eagerly, so the step mutates its state in place. Every augmentation
+draw comes from the state's generator, on the step's device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +22,13 @@ from basd_tpu_torch.losses import basd_loss
 from basd_tpu_torch.losses.selector import SelectorState
 from basd_tpu_torch.models.teacher import Teacher, extract_intermediates
 from basd_tpu_torch.models.vit import VisionTransformer
-from basd_tpu_torch.ops.preprocess import dual_view_eval
+from basd_tpu_torch.ops.mixup import MixDraws, mixup_cutmix, sample_mixup
+from basd_tpu_torch.ops.preprocess import (
+    ViewDraws,
+    dual_view,
+    dual_view_eval,
+    sample_view_draws,
+)
 from basd_tpu_torch.training.schedule_free import ScheduleFreeAdamW
 
 
@@ -28,7 +37,7 @@ class TrainState:
     student: VisionTransformer  # parameters are the y-point
     selector: SelectorState  # log_temperatures trained; projections frozen
     optimizer: ScheduleFreeAdamW  # over (student, log_temperatures)
-    generator: torch.Generator  # drop-path randomness
+    generator: torch.Generator  # augmentation draws and drop path
     step: int = 0
 
 
@@ -42,7 +51,7 @@ def init_train_state(
     warmup_steps: int,
 ) -> TrainState:
     """Optimizer over the student's CURRENT weights (its z starts as a copy
-    of them) and the selector's log-temperatures; drop-path generator on
+    of them) and the selector's log-temperatures; the step's generator on
     the student's device, seeded with `seed`."""
     device = next(student.parameters()).device
     optimizer = ScheduleFreeAdamW(
@@ -53,6 +62,17 @@ def init_train_state(
     )
     generator = torch.Generator(device=device).manual_seed(seed)
     return TrainState(student, selector, optimizer, generator)
+
+
+class StepDraws(NamedTuple):
+    """The augmentation draws of one step."""
+
+    view: ViewDraws
+    mix: MixDraws
+
+
+def sample_step_draws(generator: torch.Generator, batch: int) -> StepDraws:
+    return StepDraws(sample_view_draws(generator, batch), sample_mixup(generator))
 
 
 def make_train_step(
@@ -73,15 +93,14 @@ def make_train_step(
 ):
     """Build (init_fn, step_fn). init_fn(seed, selector) -> TrainState;
     step_fn(state, images_u8 (B, H, W, 3) uint8, labels (B,)) -> (state,
-    metrics), updating `state` in place. `augment=False` is the
+    metrics), updating `state` in place. `augment=True` is bench.py's
+    step: the augmented student view and mixed soft targets, with the draws
+    from `sample_step_draws(state.generator, batch)`. `augment=False` is the
     deterministic mode: both views are the eval transform and the targets
     one-hot."""
-    if augment:
-        raise NotImplementedError(
-            "augment=True (TrivialAugmentWide, the warp kernel and "
-            "mixup/cutmix) comes with the next port slice (ROADMAP K4 + M5); "
-            "pass augment=False"
-        )
+
+    views = dict(img_size=img_size, crop_ratio=crop_ratio,
+                 teacher_stats=teacher_stats, dataset_stats=dataset_stats)
 
     def init_fn(seed: int, selector: SelectorState) -> TrainState:
         return init_train_state(
@@ -91,15 +110,17 @@ def make_train_step(
 
     def step_fn(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor):
         # the named ranges show each stage in a torch.profiler trace
-        with record_function("basd:views_teacher"):
-            clean, student_imgs = dual_view_eval(
-                images_u8,
-                img_size=img_size,
-                crop_ratio=crop_ratio,
-                teacher_stats=teacher_stats,
-                dataset_stats=dataset_stats,
-            )
-            soft_targets = F.one_hot(labels.long(), num_classes).float()
+        if augment:
+            with record_function("basd:augment"):
+                draws = sample_step_draws(state.generator, images_u8.shape[0])
+                clean, augmented = dual_view(images_u8, draws.view, **views)
+                student_imgs, soft_targets = mixup_cutmix(
+                    augmented, labels, draws.mix, num_classes=num_classes)
+        else:
+            with record_function("basd:views"):
+                clean, student_imgs = dual_view_eval(images_u8, **views)
+                soft_targets = F.one_hot(labels.long(), num_classes).float()
+        with record_function("basd:teacher"):
             teacher_tokens, teacher_importance = extract_intermediates(
                 teacher, clean)
         with record_function("basd:student_forward"):

@@ -12,13 +12,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      batch 128) and the calibrated subspace K;
   4. kernels: each kernel against its plain torch version on the card at
      the main-path shapes, with its stated tolerance, timed beside the
-     plain version and a PyTorch library yardstick;
-  5. main path: train steps of `make_train_step(augment=False)`, with the
-     kernels' launch counters reset just before and read just after;
-  6. reference: one small configuration stepped on the card and on the
-     CPU (plain versions), losses and ranks compared;
+     plain version and a PyTorch library yardstick where one exists;
+  5. main path: a short `make_train_step(augment=False)` run, then train
+     steps of `make_train_step(augment=True)` (bench.py's step), each with
+     the kernels' launch counters reset just before and read just after;
+  6. reference: one small configuration stepped with augment=True on the
+     card and on the CPU (plain versions) from one set of draws, student
+     views, losses and ranks compared;
   7. profile: one main-path step under torch.profiler, device time by
-     kernel;
+     kernel and host time by stage;
 then a JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}} last.
 """
@@ -26,6 +28,7 @@ result line {"ok": true, "device": {...}} last.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +36,7 @@ import time
 import numpy as np
 
 MAIN_STEPS = 6
+DETERMINISTIC_STEPS = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TEACHER_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 DATASET_STATS = ((0.507, 0.487, 0.441), (0.267, 0.256, 0.276))
@@ -65,10 +69,13 @@ def main() -> int:
     )
     from basd_tpu_torch.models import create_student, load_teacher
     from basd_tpu_torch.ops import attention as attn
-    from basd_tpu_torch.ops.preprocess import eval_view
+    from basd_tpu_torch.ops import warp_kernel as wk
+    from basd_tpu_torch.ops.mixup import mixup_cutmix
+    from basd_tpu_torch.ops.preprocess import dual_view, eval_view
     from basd_tpu_torch.spectral import jacobi
     from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
     from basd_tpu_torch.spectral.ops import use_jacobi
+    from basd_tpu_torch.training import train_step
     from basd_tpu_torch.training.train_step import make_train_step
 
     # fp32 means fp32 here: no TF32 in matmuls or in cuDNN convolutions
@@ -376,54 +383,144 @@ def main() -> int:
               f"{rec_err:.3g} orth {orth_err:.3g} (tol {tol}); sweeps=6 eig vs "
               f"LAPACK {eig6_err:.3g}")
 
-    # ---- 5. the main path ----
-    init_fn, step_fn = make_train_step(
-        student, teacher,
-        learning_rate=5e-4, weight_decay=0.05, warmup_steps=1000,
-        label_smoothing=0.01, img_size=img, crop_ratio=img / raw,
-        teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
-        num_classes=num_classes, subspace_k=k_cal, augment=False,
-    )
-    state = init_fn(0, selector)
-    step_ms = []
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    for i in range(MAIN_STEPS):
-        t0 = time.perf_counter()
-        state, met = step_fn(state, images, labels)
-        loss = float(met["loss"])
+    # K4 on fp32 (B, n, n, C) images with rows that cover every geometric
+    # op at its extremes (shear +-0.99, translate +-32, rotate +-135 and
+    # +-45 degrees, exact quarter turns), a fractional translation and
+    # identity, each with and without the hflip. Tolerance 1e-5; rows
+    # without shear, translation or residual rotation (identity and exact
+    # quarter turns) are permutations and must be bit-identical. The
+    # quarter-turn picked on the card must be the CPU's (the +-135 degree
+    # tie of angle / (pi/2)).
+    warp_ops = [("angle", 0.0)]
+    for v in (0.99, -0.99):
+        warp_ops += [("shear_x", v), ("shear_y", v)]
+    for v in (32.0, -32.0, 3.7):
+        warp_ops += [("trans_x", v), ("trans_y", v)]
+    warp_ops += [("angle", d) for d in (135, -135, 45, -45, 30, 90, 180, -90, 270)]
+    warp_names = ("angle", "shear_x", "shear_y", "trans_x", "trans_y")
+
+    def warp_check(b, n, c, ops):
+        vals = {k: torch.zeros(b) for k in warp_names}
+        flip = torch.arange(b) % 2 == 1
+        for i in range(b):
+            kind, v = ops[(i // 2) % len(ops)]
+            vals[kind][i] = v * math.pi / 180 if kind == "angle" else v
+        p_cpu = wk.warp_params(*(vals[k] for k in warp_names), flip)
+        params = wk.warp_params(*(vals[k].to(dev) for k in warp_names), flip.to(dev))
+        if not torch.equal(params[:, 5].cpu(), p_cpu[:, 5]):
+            raise AssertionError(f"warp quarter-turns: card {params[:, 5].tolist()} "
+                                 f"cpu {p_cpu[:, 5].tolist()}")
+        x = torch.rand((b, n, n, c), device=dev, generator=gen)
+        got = wk._warp_cuda(x, params)
+        want = wk.geometric_warp_plain(x, params)
+        z = torch.zeros(b, device=dev)
+        ident = wk._warp_cuda(x, wk.warp_params(z, z, z, z, z))
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        w = met["mixing_weights"]
-        ranks = met["mp_ranks"]
-        if not np.isfinite(loss):
-            raise AssertionError(f"step {i}: loss {loss}")
-        if w.shape != (len(points), 12) or \
-                (w.sum(-1) - 1).abs().max().item() > 1e-5:
-            raise AssertionError(f"step {i}: mixing weights {w}")
-        if ranks.min().item() < 1 or ranks.max().item() > k_cal:
-            raise AssertionError(f"step {i}: mp_ranks {ranks.tolist()}")
-        print(f"step {i}: loss {loss:.6f} ce {float(met['ce_loss']):.6f} geo "
-              f"{float(met['geo_loss']):.6f} temps "
-              f"{[round(t, 6) for t in met['temperatures'].tolist()]} "
-              f"mp_ranks {ranks.tolist()} K {k_cal} ms {step_ms[-1]:.2f}")
-    launches = dict(kernels.LAUNCHES)
-    per_step = {"attention_fwd": 24, "attention_bwd": 12,
-                "jacobi_eigh": 3 if k3_on_path else 0}
-    for name, want in per_step.items():
-        if launches[name] != want * MAIN_STEPS:
+        err = (got - want).abs().amax(dim=(1, 2, 3))
+        exact = (params[:, :5] == 0).all(dim=1)
+        turns = int((exact & (params[:, 5] != 0)).sum())
+        if not (err.max().item() <= 1e-5 and (err[exact] == 0).all()
+                and torch.equal(ident, x)):
             raise AssertionError(
-                f"{name}: {launches[name]} launches in {MAIN_STEPS} steps, "
-                f"expected {want} per step")
+                f"warp {(b, n, n, c)}: max err {err.max().item()} (tol 1e-5), "
+                f"exact rows {err[exact].tolist()}, identity exact "
+                f"{torch.equal(ident, x)}")
+        bnd, by = bound(2 * x.numel() * 4, 9 * x.numel(), f32)
+        print(f"kernel warp {(b, n, n, c)}: max err {err.max().item():.3g} "
+              f"(tol 1e-5); {int(exact.sum())} permutation rows ({turns} "
+              f"quarter-turns) and identity bit-identical")
+        return x, params, dict(max_abs_err=err.max().item(), bound_ms=bnd,
+                               bound_by=by, library_ms=None)
+
+    x, params, row = warp_check(batch, img, 3, warp_ops)
+    row.update(ms=timed_ms(lambda: wk._warp_cuda(x, params), 200),
+               plain_ms=timed_ms(lambda: wk.geometric_warp_plain(x, params), 5))
+    report["warp"] = {f"main path {(batch, img, img, 3)}": row}
+    print(f"kernel warp {(batch, img, img, 3)}: ms {row['ms']:.4f} plain "
+          f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']}); "
+          "no PyTorch call computes the same three-shear warp")
+    pick = lambda *keys: [op for op in warp_ops if op in keys]
+    edges = [(4, 224, 3, pick(("shear_x", 0.99), ("angle", 135))),
+             (4, 224, 3, pick(("trans_y", -32.0), ("angle", -45))),
+             (2 * len(warp_ops), 96, 3, warp_ops),
+             (2 * len(warp_ops), 33, 3, warp_ops),
+             (2 * len(warp_ops), 7, 1, warp_ops),
+             (4, 1, 3, warp_ops),
+             (2, 240, 1, pick(("angle", 90)))]
+    for b, n, c, ops in edges:
+        x, params, row = warp_check(b, n, c, ops)
+        if n == 224:
+            row.update(ms=timed_ms(lambda: wk._warp_cuda(x, params), 50))
+        report["warp"][f"edge {(b, n, n, c)} {ops[0][0]}"] = row
+
+    # ---- 5. the main path: bench.py's augmented step, then augment=False ----
+    def main_path(augment, steps):
+        init_fn, step_fn = make_train_step(
+            student, teacher,
+            learning_rate=5e-4, weight_decay=0.05, warmup_steps=1000,
+            label_smoothing=0.01, img_size=img, crop_ratio=img / raw,
+            teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
+            num_classes=num_classes, subspace_k=k_cal, augment=augment,
+        )
+        state = init_fn(0, selector)
+        step_ms = []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state, met = step_fn(state, images, labels)
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            w = met["mixing_weights"]
+            ranks = met["mp_ranks"]
+            if not np.isfinite(loss):
+                raise AssertionError(f"step {i}: loss {loss}")
+            if w.shape != (len(points), 12) or \
+                    (w.sum(-1) - 1).abs().max().item() > 1e-5:
+                raise AssertionError(f"step {i}: mixing weights {w}")
+            if ranks.min().item() < 1 or ranks.max().item() > k_cal:
+                raise AssertionError(f"step {i}: mp_ranks {ranks.tolist()}")
+            print(f"step {i} (augment={augment}): loss {loss:.6f} ce "
+                  f"{float(met['ce_loss']):.6f} geo {float(met['geo_loss']):.6f} "
+                  f"temps {[round(t, 6) for t in met['temperatures'].tolist()]} "
+                  f"mp_ranks {ranks.tolist()} K {k_cal} ms {step_ms[-1]:.2f}")
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        per_step = {"attention_fwd": 24, "attention_bwd": 12,
+                    "jacobi_eigh": 3 if k3_on_path else 0,
+                    "warp": 1 if augment else 0}
+        for name, want in per_step.items():
+            if launches[name] != want * steps:
+                raise AssertionError(
+                    f"{name}: {launches[name]} launches in {steps} steps "
+                    f"(augment={augment}), expected {want} per step")
+        print(f"main path (augment={augment}): launches {launches} over {steps} "
+              f"steps; step ms {step_ms} (median after the first "
+              f"{np.median(step_ms[1:]):.2f}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return step_fn, state, launches, step_ms
+
     if not k3_on_path:
         print(f"finding: calibrated K={k_cal} is outside the Jacobi gate, "
               "the eigh kernel is off the main path")
-    print(f"main path: launches {launches} over {MAIN_STEPS} steps; step ms "
-          f"{step_ms} (median after the first {np.median(step_ms[1:]):.2f}); "
-          f"peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # the deterministic path first: phase 7 profiles the augmented state
+    _, _, _, det_step_ms = main_path(False, DETERMINISTIC_STEPS)
+    step_fn, state, launches, step_ms = main_path(True, MAIN_STEPS)
 
     # ---- 6. reference on a small input: card vs CPU plain versions ----
+    # The card's and the CPU's generators give different numbers, so both
+    # sides take one set of augmentation draws, sampled once on the CPU.
+    def to_device(draws, device):
+        if isinstance(draws, torch.Tensor):
+            return draws.to(device)
+        return type(draws)(*(to_device(d, device) for d in draws))
+
+    small_gen = torch.Generator().manual_seed(7)
+    small_draws = [train_step.sample_step_draws(small_gen, 8) for _ in range(2)]
+    view_kw = dict(img_size=16, crop_ratio=16 / 20, teacher_stats=TEACHER_STATS,
+                   dataset_stats=DATASET_STATS)
+
     def small_run(device):
         t = load_teacher("vit_mini_patch4", img_size=16, dtype=f32, device=device)
         pts = extraction_points(4, 2)
@@ -434,29 +531,49 @@ def main() -> int:
                             device=device)
         ini, stp = make_train_step(
             s, t, learning_rate=1e-3, weight_decay=0.05, warmup_steps=5,
-            label_smoothing=0.1, img_size=16, crop_ratio=16 / 20,
-            teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
-            num_classes=10, augment=False,
+            label_smoothing=0.1, num_classes=10, **view_kw,
         )
         st = ini(0, sel)
         r = np.random.default_rng(42)
         im = torch.from_numpy((r.random((8, 20, 20, 3)) * 255).astype(np.uint8))
         lb = torch.from_numpy(r.integers(0, 10, 8, dtype=np.int64))
-        out = []
-        for _ in range(2):
-            st, mt = stp(st, im.to(device), lb.to(device))
-            out.append((float(mt["loss"]), mt["mp_ranks"].tolist()))
-        return out
+        im, lb = im.to(device), lb.to(device)
+        draws = [to_device(d, device) for d in small_draws]
+        views = []
+        for d in draws:
+            _, aug = dual_view(im, d.view, **view_kw)
+            views.append([v.cpu() for v in mixup_cutmix(aug, lb, d.mix, num_classes=10)])
+        replay = iter(draws)
+        sampler = train_step.sample_step_draws
+        train_step.sample_step_draws = lambda generator, batch: next(replay)
+        try:
+            out = []
+            for _ in draws:
+                st, mt = stp(st, im, lb)
+                out.append((float(mt["loss"]), mt["mp_ranks"].tolist()))
+        finally:
+            train_step.sample_step_draws = sampler
+        return out, views
 
     kernels.reset_launches()
-    on_card = small_run(dev)
+    on_card, card_views = small_run(dev)
+    torch.cuda.synchronize()
     small_launches = dict(kernels.LAUNCHES)
-    on_cpu = small_run(torch.device("cpu"))
+    on_cpu, cpu_views = small_run(torch.device("cpu"))
+    view_err = max((a - b).abs().max().item()
+                   for va, vb in zip(card_views, cpu_views) for a, b in zip(va, vb))
+    if not view_err <= 1e-5:
+        raise AssertionError(f"reference: student view / targets card vs cpu {view_err}")
     for (lc, rc), (lp, rp) in zip(on_card, on_cpu):
         if rc != rp or not abs(lc - lp) <= 1e-3 * abs(lp):
             raise AssertionError(f"reference: card {on_card} vs cpu {on_cpu}")
-    print(f"reference: card {on_card} vs cpu {on_cpu} (loss rtol 1e-3, ranks "
-          f"equal); card launches {small_launches}")
+    # one warp per dual_view: the views compared above, then the steps
+    if small_launches["warp"] != 2 * len(small_draws):
+        raise AssertionError(f"reference: warp launches {small_launches}")
+    ops = sorted(set(torch.cat([d.view.augment.op for d in small_draws]).tolist()))
+    print(f"reference (augment=True, ops {ops}): student views and targets card "
+          f"vs cpu max err {view_err:.3g} (tol 1e-5); loss card {on_card} vs cpu "
+          f"{on_cpu} (loss rtol 1e-3, ranks equal); card launches {small_launches}")
 
     # ---- 7. one profiled main-path step ----
     from torch.profiler import ProfilerActivity, profile
@@ -498,6 +615,8 @@ def main() -> int:
                         "basd_tpu/spectral/pallas_jacobi.py:33",
                         f"principal angles ({len(points) * 12}, {k_cal}, {k_cal})"
                         if k3_on_path else "wide spectrum (48, 48, 48)"),
+        "warp": ("basd_tpu_torch/csrc/warp.cu", "basd_tpu/ops/warp_kernel.py:161",
+                 f"main path {(batch, img, img, 3)}"),
     }
     measured = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
@@ -515,7 +634,8 @@ def main() -> int:
             "cases": {case: {k: r[k] for k in measured if k in r}
                       for case, r in report[name].items()},
         })
-    print(json.dumps({"kernels": entries, "step_ms": step_ms}))
+    print(json.dumps({"kernels": entries, "step_ms": step_ms,
+                      "deterministic_step_ms": det_step_ms}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

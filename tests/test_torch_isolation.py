@@ -14,6 +14,7 @@ import torch
 
 import basd_tpu_torch
 from basd_tpu_torch.ops import attention as tattn
+from basd_tpu_torch.ops import warp_kernel as twarp
 from basd_tpu_torch.spectral import jacobi as tjacobi
 from basd_tpu_torch.spectral import jacobi_kernel
 
@@ -61,6 +62,13 @@ def test_sources_never_name_jax_or_the_jax_package():
         assert "basd_tpu." not in text.replace("basd_tpu_torch", ""), f
 
 
+@pytest.mark.parametrize("name", ["warp_kernel", "mixup", "augment"])
+def test_augment_modules_never_name_jax(name):
+    text = (PKG / "ops" / f"{name}.py").read_text()
+    assert not re.search(r"\bjax\b", text)
+    assert "basd_tpu." not in text.replace("basd_tpu_torch", "")
+
+
 def test_entry_points_default_to_cuda_and_refuse_without_it():
     from basd_tpu_torch.losses import init_selector
     from basd_tpu_torch.models import create_student, load_teacher
@@ -89,6 +97,7 @@ def test_wrappers_never_route_a_device_tensor_to_the_plain_version(monkeypatch):
     _forbid(monkeypatch, tattn, "attention_forward_plain")
     _forbid(monkeypatch, tattn, "attention_backward_plain")
     _forbid(monkeypatch, tjacobi, "jacobi_eigh")
+    _forbid(monkeypatch, twarp, "geometric_warp_plain")
     x = torch.empty((2, 65, 192), device="meta")
     s = torch.empty((2, 65, 3), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -97,6 +106,10 @@ def test_wrappers_never_route_a_device_tensor_to_the_plain_version(monkeypatch):
         tattn.attention_backward(x, x, x, x, s, s, s, 64)
     with pytest.raises(ValueError, match="cuda or cpu"):
         jacobi_kernel.kernel_jacobi_eigh(torch.empty((4, 48, 48), device="meta"))
+    p = torch.empty(2, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        twarp.fused_geometric_warp(torch.empty((2, 32, 32, 3), device="meta"),
+                                   p, p, p, p, p)
 
 
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
@@ -111,6 +124,17 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         jacobi_kernel._jacobi_raw_cuda(torch.zeros((4, 33, 33)), 6)
     with pytest.raises(ValueError, match="fp32"):
         jacobi_kernel._jacobi_raw_cuda(torch.zeros((4, 32, 32), dtype=torch.float64), 6)
+    params = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="fp32"):
+        twarp._warp_cuda(torch.zeros((2, 32, 32, 3), dtype=torch.float64), params)
+    with pytest.raises(ValueError, match="square"):
+        twarp._warp_cuda(torch.zeros((2, 32, 24, 3)), params)
+    with pytest.raises(ValueError, match=f"n <= {twarp.MAX_N}"):
+        twarp._warp_cuda(torch.zeros((2, 241, 241, 1)), params)
+    with pytest.raises(ValueError, match="contiguous"):
+        twarp._warp_cuda(torch.zeros((2, 3, 32, 32)).permute(0, 2, 3, 1), params)
+    with pytest.raises(ValueError, match="params"):
+        twarp._warp_cuda(torch.zeros((2, 32, 32, 3)), torch.zeros((2, 7)))
 
 
 def test_package_docstring_states_the_device_rule():

@@ -1,0 +1,144 @@
+"""Kernel K4's plain version (`basd_tpu_torch.ops.warp_kernel`) against the
+JAX package's warp: its Pallas kernel in interpret mode and its XLA tap
+sweep (`augment._geometric_warp`), fp32 on the CPU, inputs from numpy
+seeds. The CUDA kernel is held against this plain version on the card by
+chip_smoke.py."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from basd_tpu.ops import augment as jaug
+from basd_tpu.ops import warp_kernel as jwarp
+from basd_tpu_torch.ops import augment as taug
+from basd_tpu_torch.ops import warp_kernel as twarp
+
+torch.set_num_threads(1)
+
+
+def _images(b, n, seed):
+    return np.random.default_rng(seed).random((b, n, n, 3)).astype(np.float32)
+
+
+def _params(b, seed=7):
+    """tests/test_ops.py's parameter set (every geometric op, at extremes,
+    fractional translation, an exact quarter turn), plus +-135 degrees."""
+    z = lambda: np.zeros(b, np.float32)
+    angle, shx, shy, tx, ty = z(), z(), z(), z(), z()
+    angle[1] = np.deg2rad(30)
+    angle[2] = np.deg2rad(-135)
+    angle[3] = np.pi / 2
+    shx[4] = 0.99
+    shy[5] = -0.8
+    tx[6] = 3.7
+    ty[7] = -12.0
+    if b > 8:
+        angle[8] = np.deg2rad(135)
+        angle[9] = np.deg2rad(-45)
+        tx[10], shx[11] = -32.0, -0.99
+    flip = np.random.default_rng(seed).random(b) < 0.5
+    return angle, shx, shy, tx, ty, flip
+
+
+def _port(x, angle, shx, shy, tx, ty, flip=None):
+    t = torch.from_numpy
+    return twarp.fused_geometric_warp(
+        t(x), t(angle), t(shx), t(shy), t(tx), t(ty),
+        None if flip is None else t(flip)).numpy()
+
+
+def _jax_xla(x, angle, shx, shy, tx, ty, flip):
+    """The JAX package's XLA warp after an explicit hflip."""
+    xf = np.where(flip[:, None, None, None], x[:, :, ::-1, :], x)
+    a = jnp.asarray
+    return np.asarray(jax.jit(jaug._geometric_warp)(
+        a(xf), a(angle), a(shx), a(shy), a(tx), a(ty)))
+
+
+def test_matches_the_interpret_mode_pallas_kernel():
+    """B=8, n=32, the JAX tests' parameter set with +-135 degrees swapped
+    in for two rows: atol 1e-5, the JAX package's fused-vs-XLA tolerance."""
+    b, n = 8, 32
+    x = _images(b, n, 11)
+    angle, shx, shy, tx, ty, flip = _params(b)
+    angle[0], angle[5], shy[5] = np.deg2rad(135), np.deg2rad(-135), 0.0
+    a = jnp.asarray
+    want = np.asarray(jax.jit(lambda x: jwarp.fused_geometric_warp(
+        x, a(angle), a(shx), a(shy), a(tx), a(ty), a(flip), interpret=True))(a(x)))
+    got = _port(x, angle, shx, shy, tx, ty, flip)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [32, 33, 96])
+def test_matches_the_xla_warp_after_flip(n):
+    """Against `augment._geometric_warp` after hflip: atol 1e-6. n = 33 is
+    odd (a half-integer centre); n = 96 takes the two-level shift (pass
+    bounds above 40)."""
+    b = 12
+    x = _images(b, n, n)
+    params = _params(b)
+    np.testing.assert_allclose(_port(x, *params), _jax_xla(x, *params), atol=1e-6)
+    assert max(twarp.pass_bounds(96)) > 40 >= max(twarp.pass_bounds(33))
+
+
+def test_identity_parameters_are_bit_identical():
+    x = _images(3, 24, 3)
+    z = np.zeros(3, np.float32)
+    np.testing.assert_array_equal(_port(x, z, z, z, z, z), x)
+    np.testing.assert_array_equal(_port(x, z, z, z, z, z, np.zeros(3, bool)), x)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_exact_quarter_turns_are_permutations(flip):
+    """k * 90 degrees, with and without the hflip, bit for bit against
+    numpy: k = 1 is flip(swapaxes(x, 1, 2), axis=1), as `_quarter_turn`."""
+    x = _images(5, 16, 5)
+    angle = np.float32([0, np.pi / 2, np.pi, -np.pi / 2, 2 * np.pi])
+    z = np.zeros(5, np.float32)
+    fl = np.full(5, flip)
+    got = _port(x, angle, z, z, z, z, fl)
+    xf = x[:, :, ::-1] if flip else x
+    for i, k in enumerate([0, 1, 2, 3, 0]):
+        np.testing.assert_array_equal(got[i], np.rot90(xf[i], k, axes=(0, 1)))
+
+
+def test_quarter_selection_matches_jax():
+    """k and the residual of the packed rows equal the JAX package's at
+    +-135 and +-45 degrees (the 1.5 and 0.5 ties of angle / (pi/2)), exact
+    quarter turns and TrivialAugment's own rotate angles, computed in
+    fp32 with the JAX op order."""
+    mags = np.arange(31, dtype=np.float32) / np.float32(30.0)
+    sm = np.concatenate([mags, -mags])
+    angle = np.concatenate([
+        (sm * np.float32(135.0)) * np.float32(math.pi / 180.0),
+        np.float32([np.pi / 2, np.pi, -np.pi / 2, -np.pi]),
+        np.deg2rad(np.float32([135, -135, 45, -45])).astype(np.float32),
+    ]).astype(np.float32)
+    ja = jnp.asarray(angle)
+    quarter = jnp.round(ja / (jnp.pi / 2.0))
+    want_k = np.asarray(jnp.mod(quarter.astype(jnp.int32), 4))
+    want_res = np.asarray(ja - quarter * (jnp.pi / 2.0))
+    z = torch.zeros(len(angle))
+    rows = twarp.warp_params(torch.from_numpy(angle), z, z, z, z)
+    np.testing.assert_array_equal(rows[:, 5].numpy(), want_k.astype(np.float32))
+    # paeth and sin(residual) from the two libraries' tan and sin: 1e-7
+    # (the other quarter-turn would move them by ~0.4)
+    res = jnp.asarray(want_res)
+    np.testing.assert_allclose(rows[:, 2].numpy(), np.asarray(-jnp.tan(res / 2.0)),
+                               rtol=0, atol=1e-7)
+    np.testing.assert_allclose(rows[:, 1].numpy(), np.asarray(jnp.sin(res)),
+                               rtol=0, atol=1e-7)
+    # the +-135 degree rows of TrivialAugment (mag 30/30) sit on the tie
+    assert np.float32(angle[30] / np.float32(np.pi / 2)) == np.float32(1.5)
+    assert rows[30, 5].item() == 2.0 and rows[61, 5].item() == 2.0
+
+
+def test_pass_bounds_and_levels_match_jax():
+    for n in (16, 32, 33, 96, 224):
+        assert twarp.pass_bounds(n) == jwarp.pass_bounds(n)
+        for bnd in twarp.pass_bounds(n):
+            assert twarp._levels(bnd) == jwarp._levels(bnd)
