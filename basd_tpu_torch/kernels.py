@@ -38,12 +38,18 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         "basd_attention_bwd": [_P] * 10 + [_I] * 4 + [_L] * 8 + [_I, _P],
     },
     "jacobi_eigh": {
-        # a, w, vt, batch, n, steps, stream
-        "basd_jacobi_eigh": [_P] * 3 + [_I] * 3 + [_P],
+        # a, w, vt, scratch (null for n <= 168), batch, n, steps, stream
+        "basd_jacobi_eigh": [_P] * 4 + [_I] * 3 + [_P],
+        # a, w, batch, n, steps, stream
+        "basd_jacobi_eigvals": [_P] * 2 + [_I] * 3 + [_P],
     },
     "warp": {
         # images, out, params, batch, n, channels, stream
         "basd_warp": [_P] * 3 + [_I] * 3 + [_P],
+    },
+    "attn_probe": {
+        # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream
+        "basd_attn_probe": [_P] * 5 + [_I] * 6 + [_P],
     },
 }
 
@@ -52,6 +58,8 @@ LAUNCHES: dict[str, int] = {
     "attention_bwd": 0,
     "jacobi_eigh": 0,
     "warp": 0,
+    "jacobi_eigvals": 0,
+    "attn_probe": 0,
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,9 @@
 """Batch-parallel cyclic Jacobi symmetric eigensolver in plain torch: the
-plain version of the Jacobi eigh kernel (`spectral/jacobi_kernel.py`).
+plain versions of the Jacobi eigh and eigenvalues kernels
+(`spectral/jacobi_kernel.py`).
 
-Counterpart of `basd_tpu/spectral/jacobi.py`. One parallel-order step
+Counterpart of `basd_tpu/spectral/jacobi.py` (and of the eigenvalues-only
+`pallas_jacobi_eigvals`). One parallel-order step
 rotates the n/2 disjoint pairs (i, i + h), h = n/2, of every matrix in the
 batch at once; the pairs are the contiguous top and bottom halves, so the
 rotations are elementwise combinations of two halves. Between steps the
@@ -136,3 +138,30 @@ def jacobi_eigh(
     for _ in range((n - 1) * sweeps):
         a, v = jacobi_step(a, v)
     return finish(diag_of(a), v, n0, batch_shape, sort)
+
+
+def finish_eigvals(w: torch.Tensor, n0: int, batch_shape) -> torch.Tensor:
+    """Sort ascending; an odd n's pad contributes one zero eigenvalue,
+    dropped as the entry of smallest |w|; restore the batch shape."""
+    w = torch.sort(w, dim=-1).values
+    n = w.shape[-1]
+    if n != n0:
+        drop = torch.argmin(w.abs(), dim=-1)
+        keep = torch.arange(n, device=w.device)[None, :] != drop[:, None]
+        order = torch.argsort((~keep).to(torch.int8), dim=-1, stable=True)[:, :n0]
+        w = torch.sort(torch.gather(w, -1, order), dim=-1).values
+    return w.reshape(*batch_shape, n0)
+
+
+def jacobi_eigvals(a: torch.Tensor, *, sweeps: int = 9) -> torch.Tensor:
+    """Eigenvalues only (ascending, eigvalsh-compatible) of (..., n, n):
+    the plain version of the Jacobi eigenvalues kernel, K3's rotations
+    without the eigenvector accumulator (counterpart of
+    `pallas_jacobi_eigvals`)."""
+    batch_shape = a.shape[:-2]
+    a, n0 = symmetrize_pad(a)
+    for _ in range((a.shape[-1] - 1) * sweeps):
+        c, s = pair_rotations(a)
+        a = apply_cols(apply_rows(a, c, s), c, s)
+        a = rotate_positions(rotate_positions(a, 1), 2)
+    return finish_eigvals(diag_of(a), n0, batch_shape)

@@ -1,11 +1,15 @@
-"""Wrapper of the batch-parallel Jacobi eigh kernel (`csrc/jacobi_eigh.cu`).
+"""Wrappers of the batch-parallel Jacobi kernels (`csrc/jacobi_eigh.cu`):
+eigh (K3) and eigenvalues only (K5).
 
-Counterpart of `basd_tpu/spectral/pallas_jacobi.py:pallas_jacobi_eigh`:
-symmetrize, pad odd n, run (n - 1) * sweeps rotation steps with A and V^T
-resident on chip, strip the pad and return descending eigenvalues. The
-tensor's device picks the implementation: a CUDA tensor launches the
-kernel (or raises), a CPU tensor takes the plain version
-`spectral.jacobi.jacobi_eigh`, which runs the same rotations in torch ops.
+Counterparts of `basd_tpu/spectral/pallas_jacobi.py:pallas_jacobi_eigh`
+and `pallas_jacobi_eigvals`: symmetrize, pad odd n, run (n - 1) * sweeps
+rotation steps with A resident on chip, then finish on the host side of
+the kernel. K3 strips the pad through the eigenvector and returns
+descending eigenvalues; K5 returns them ascending and drops the pad as the
+entry of smallest |w|. The tensor's device picks the implementation: a
+CUDA tensor launches the kernel (or raises), a CPU tensor takes the plain
+version (`spectral.jacobi.jacobi_eigh`, `jacobi_eigvals`), which runs the
+same rotations in torch ops.
 """
 
 from __future__ import annotations
@@ -15,29 +19,63 @@ import torch
 from basd_tpu_torch import kernels
 from basd_tpu_torch.spectral import jacobi
 
-# A and V^T must fit in one CTA's shared memory (227 KB): 2 n^2 fp32
-MAX_N = 168
+# A and V^T fit in one CTA's shared memory (227 KB) together up to 2 n^2
+# fp32 at n = 168; above that K3 keeps V^T in a device-memory scratch.
+# A alone fits up to n = 238.
+MAX_N_SHARED_VT = 168
+MAX_N = 238
 
 
-def _jacobi_raw_cuda(a: torch.Tensor, sweeps: int):
-    """(B, n, n) fp32 symmetric, n even -> (w (B, n), vt (B, n, n)) in the
-    kernel's final position order (unsorted)."""
+def _check(a: torch.Tensor) -> tuple[int, int]:
     b, n, _ = a.shape
     if a.dtype != torch.float32 or not a.is_contiguous():
         raise ValueError("jacobi kernel takes contiguous fp32 (B, n, n)")
     if n % 2 or not 4 <= n <= MAX_N:
         raise ValueError(f"jacobi kernel takes even 4 <= n <= {MAX_N}, got {n}")
+    return b, n
+
+
+def _stream(a: torch.Tensor) -> int:
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
+def _jacobi_raw_cuda(a: torch.Tensor, sweeps: int):
+    """(B, n, n) fp32 symmetric, n even -> (w (B, n), vt (B, n, n)) in the
+    kernel's final position order (unsorted)."""
+    b, n = _check(a)
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     vt = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
+    scratch = None
+    if n > MAX_N_SHARED_VT:
+        scratch = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
     lib = kernels.library("jacobi_eigh")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     status = lib.basd_jacobi_eigh(
-        a.data_ptr(), w.data_ptr(), vt.data_ptr(), b, n, (n - 1) * sweeps,
-        stream,
+        a.data_ptr(), w.data_ptr(), vt.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, n,
+        (n - 1) * sweeps, _stream(a),
     )
     kernels.check(status, "basd_jacobi_eigh")
     kernels.LAUNCHES["jacobi_eigh"] += 1
     return w, vt
+
+
+def _jacobi_eigvals_raw_cuda(a: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """(B, n, n) fp32 symmetric, n even -> w (B, n), unsorted."""
+    b, n = _check(a)
+    w = torch.empty((b, n), dtype=torch.float32, device=a.device)
+    lib = kernels.library("jacobi_eigh")
+    status = lib.basd_jacobi_eigvals(
+        a.data_ptr(), w.data_ptr(), b, n, (n - 1) * sweeps, _stream(a)
+    )
+    kernels.check(status, "basd_jacobi_eigvals")
+    kernels.LAUNCHES["jacobi_eigvals"] += 1
+    return w
+
+
+def _on_cuda(a: torch.Tensor, what: str) -> bool:
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"jacobi {what} runs on cuda or cpu, not {a.device}")
+    return a.device.type == "cuda"
 
 
 def kernel_jacobi_eigh(
@@ -45,11 +83,20 @@ def kernel_jacobi_eigh(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """eigh of (..., n, n) symmetric batches, descending eigenvalues;
     eigvecs[..., :, i] is the i-th eigenvector. Odd n is padded."""
-    if a.device.type == "cpu":
+    if not _on_cuda(a, "eigh"):
         return jacobi.jacobi_eigh(a, sweeps=sweeps)
-    if a.device.type != "cuda":
-        raise ValueError(f"jacobi eigh runs on cuda or cpu, not {a.device}")
     batch_shape = a.shape[:-2]
     a, n0 = jacobi.symmetrize_pad(a)
     w, vt = _jacobi_raw_cuda(a.contiguous(), sweeps)
     return jacobi.finish(w, vt.transpose(-1, -2), n0, batch_shape)
+
+
+def kernel_jacobi_eigvals(a: torch.Tensor, *, sweeps: int = 9) -> torch.Tensor:
+    """Eigenvalues (ascending, eigvalsh-compatible) of (..., n, n)
+    symmetric batches. Odd n is padded and the pad's zero dropped."""
+    if not _on_cuda(a, "eigvals"):
+        return jacobi.jacobi_eigvals(a, sweeps=sweeps)
+    batch_shape = a.shape[:-2]
+    a, n0 = jacobi.symmetrize_pad(a)
+    w = _jacobi_eigvals_raw_cuda(a.contiguous(), sweeps)
+    return jacobi.finish_eigvals(w, n0, batch_shape)

@@ -1,7 +1,6 @@
 """Spectral primitives of the BASD selector and Procrustes loss, in torch.
 
-Counterpart of the part of `basd_tpu/spectral/ops.py` the train step
-reaches. Every SVD-class quantity comes from a symmetric eigendecomposition
+Counterpart of `basd_tpu/spectral/ops.py`. Every SVD-class quantity comes from a symmetric eigendecomposition
 of a small Gram matrix; data-dependent Marchenko-Pastur ranks become rank
 masks over K-capped bases, so every shape is static.
 
@@ -92,6 +91,14 @@ def centered_gram(z: torch.Tensor) -> torch.Tensor:
     return zc.transpose(-1, -2) @ zc
 
 
+def grassmann_basis(z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full right-singular basis (..., D, D), descending, and singular
+    values (..., D) of the column-centered (..., M, D) matrix (not / M);
+    basis[..., :, i] is the i-th principal direction."""
+    eigvals, basis = _eigh_desc(centered_gram(z))
+    return basis, torch.sqrt(torch.clamp(eigvals, min=0.0))
+
+
 def marchenko_pastur_rank(x: torch.Tensor) -> torch.Tensor:
     """MP threshold rank of (..., M, D) features (int32)."""
     m = x.shape[-2]
@@ -125,6 +132,16 @@ def _svdvals_fwd_math(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.sqrt(torch.clamp(eigvals, min=0.0)), u
 
 
+def _safe_inverse(sigma: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g / sigma, with a zero coefficient where sigma <= 1e-6 max(sigma)."""
+    scale = sigma.amax(dim=-1, keepdim=True)
+    safe = sigma > 1e-6 * torch.clamp(scale, min=1e-30)
+    return torch.where(
+        safe, g / torch.where(safe, sigma, torch.ones_like(sigma)),
+        torch.zeros_like(sigma),
+    )
+
+
 class _SvdvalsMLeN(torch.autograd.Function):
     """d sigma_j = u_j^T dA v_j with v_j = A^T u_j / sigma_j, so
     grad_A = U diag(g / sigma) U^T A, with a zero coefficient where
@@ -139,12 +156,7 @@ class _SvdvalsMLeN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, sigma, u = ctx.saved_tensors
-        scale = sigma.amax(dim=-1, keepdim=True)
-        safe = sigma > 1e-6 * torch.clamp(scale, min=1e-30)
-        coef = torch.where(
-            safe, g / torch.where(safe, sigma, torch.ones_like(sigma)),
-            torch.zeros_like(sigma),
-        )
+        coef = _safe_inverse(sigma, g)
         return ((u * coef[..., None, :]) @ u.transpose(-1, -2) @ a).to(a.dtype)
 
 
@@ -154,6 +166,67 @@ def svdvals_psd(a: torch.Tensor) -> torch.Tensor:
     if a.shape[-2] <= a.shape[-1]:
         return _SvdvalsMLeN.apply(a)
     return _SvdvalsMLeN.apply(a.transpose(-1, -2))
+
+
+class _NuclearNorm(torch.autograd.Function):
+    """Sum of singular values from the small-side Gram's eigh; the backward
+    is U diag(1 / sigma) U^T A = U V^T (zero where sigma ~ 0)."""
+
+    @staticmethod
+    def forward(ctx, c):
+        transposed = c.shape[-2] > c.shape[-1]
+        a = c.transpose(-1, -2) if transposed else c
+        sigma, u = _svdvals_fwd_math(a)
+        ctx.save_for_backward(a, sigma, u)
+        ctx.transposed = transposed
+        return sigma.sum(dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, sigma, u = ctx.saved_tensors
+        coef = _safe_inverse(sigma, torch.ones_like(sigma))
+        grad = (u * coef[..., None, :]) @ u.transpose(-1, -2) @ a
+        grad = grad * g[..., None, None]
+        return grad.transpose(-1, -2) if ctx.transposed else grad
+
+
+def nuclear_norm(c: torch.Tensor) -> torch.Tensor:
+    """Nuclear norm of (..., m, n) through an eigendecomposition: the
+    high-accuracy oracle of the Procrustes loss's Newton-Schulz routes."""
+    return _NuclearNorm.apply(c)
+
+
+def _polar_newton_schulz(c: torch.Tensor, iters: int) -> torch.Tensor:
+    """Polar factor U V^T of (..., m, n) by X <- 1.5 X - 0.5 X X^T X from
+    C / ||C||_F (the Frobenius norm bounds the spectral norm)."""
+    scale = torch.sqrt(torch.sum(c * c, dim=(-2, -1), keepdim=True))
+    x = c / torch.clamp(scale, min=_TINY)
+    for _ in range(iters):
+        x = 1.5 * x - 0.5 * ((x @ x.transpose(-1, -2)) @ x)
+    return x
+
+
+class _NuclearNormNS(torch.autograd.Function):
+    """||C||_nuc = tr(P^T C) with P the Newton-Schulz polar factor; the
+    backward is P."""
+
+    @staticmethod
+    def forward(ctx, c, iters):
+        cf = c.to(_F32)
+        p = _polar_newton_schulz(cf, iters)
+        ctx.save_for_backward(p)
+        return torch.sum(p * cf, dim=(-2, -1))
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return g[..., None, None] * p, None
+
+
+def nuclear_norm_ns(c: torch.Tensor, iters: int = 24) -> torch.Tensor:
+    """Nuclear norm via the Newton-Schulz polar decomposition: matmuls
+    only, and d||C||_nuc / dC = P exactly."""
+    return _NuclearNormNS.apply(c, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +332,36 @@ def nuclear_norm_pair_gram(g_s: torch.Tensor, g_t: torch.Tensor) -> torch.Tensor
     return _NuclearNormPairGram.apply(g_s, g_t)
 
 
+class _NuclearNormPair(torch.autograd.Function):
+    """||S^T T||_nuc on the token side: W = (T T^T)(S S^T), value tr(W^1/2),
+    backward dL/dS = G_t Z^T S, dL/dT = G_s Z T with Z ~ W^-1/2."""
+
+    @staticmethod
+    def forward(ctx, s, t):
+        sf, tf = s.to(_F32), t.to(_F32)
+        g_t = tf @ tf.transpose(-1, -2)
+        g_s = sf @ sf.transpose(-1, -2)
+        value, z = _sqrt_trace(g_t @ g_s)
+        ctx.save_for_backward(sf, tf, g_s, g_t, z)
+        ctx.dtypes = (s.dtype, t.dtype)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        sf, tf, g_s, g_t, z = ctx.saved_tensors
+        g = g[..., None, None]
+        ds = g * (g_t @ z.transpose(-1, -2) @ sf)
+        dt = g * (g_s @ z @ tf)
+        return ds.to(ctx.dtypes[0]), dt.to(ctx.dtypes[1])
+
+
+def nuclear_norm_pair(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """||S^T T||_nuc for S (..., N, D_s), T (..., N, D_t), computed on the
+    (N, N) token side, where every Newton-Schulz matmul is smallest when N
+    is the smallest axis."""
+    return _NuclearNormPair.apply(s, t)
+
+
 # ---------------------------------------------------------------------------
 # Top-k eigenbasis via subspace iteration
 # ---------------------------------------------------------------------------
@@ -295,6 +398,16 @@ def topk_basis_gram(
     eigvals, u = _eigh_desc(r)
     basis = v @ u
     return basis, torch.sqrt(torch.clamp(eigvals, min=0.0))
+
+
+def topk_basis(
+    z: torch.Tensor, k: int, *, g_iters: int = 6, polar_iters: int = 14
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k right-singular basis (..., D, K) and singular values (..., K)
+    of the column-centered (..., M, D) matrix: `topk_basis_gram` of its
+    centered Gram."""
+    return topk_basis_gram(centered_gram(z), k, g_iters=g_iters,
+                           polar_iters=polar_iters)
 
 
 def topk_basis_gram_nograd(

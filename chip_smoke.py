@@ -5,17 +5,26 @@
 
 Phases, in order; any failure raises and the exit code is not 0:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every kernel of the main path from basd_tpu_torch/csrc (nvcc,
+  2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once);
   3. staging: the Table-3 models at full width (DeiT-Tiny/4 student at
      32 px, DINOv2 ViT-B/14 teacher, bf16, random weights from seeds,
      batch 128) and the calibrated subspace K;
   4. kernels: each kernel against its plain torch version on the card at
-     the main-path shapes, with its stated tolerance, timed beside the
-     plain version and a PyTorch library yardstick where one exists;
+     the shapes of the paths below, with its stated tolerance, timed beside
+     the plain version and a PyTorch library yardstick where one exists:
+     K1-K4 at the train step's shapes; K5 on the spectral tuner's own
+     (12, 192, 192) token covariances and at an odd n (191); K3 at
+     (48, 192, 192), its device-memory V^T route, on the sweeps probe's two
+     spectrum families; K6 in all six variants at the teacher's attention
+     shape (256, 12, 257, 64);
   5. main path: a short `make_train_step(augment=False)` run, then train
      steps of `make_train_step(augment=True)` (bench.py's step), each with
      the kernels' launch counters reset just before and read just after;
+  5b. tools: one full-size run of each tool path
+     (`basd_tpu_torch.tools.tune_spectral`, `probe_jacobi_sweeps`,
+     `probe_attn_internals`), counters reset just before and read just
+     after each;
   6. reference: one small configuration stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared;
@@ -73,7 +82,17 @@ def main() -> int:
     from basd_tpu_torch.ops.mixup import mixup_cutmix
     from basd_tpu_torch.ops.preprocess import dual_view, eval_view
     from basd_tpu_torch.spectral import jacobi
-    from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
+    from basd_tpu_torch.ops import attn_probe
+    from basd_tpu_torch.spectral.jacobi_kernel import (
+        kernel_jacobi_eigh,
+        kernel_jacobi_eigvals,
+    )
+    from basd_tpu_torch.tools import (
+        probe_attn_internals,
+        probe_jacobi_sweeps,
+        tune_spectral,
+    )
+    from basd_tpu_torch.tools.timing import device_ms
     from basd_tpu_torch.spectral.ops import use_jacobi
     from basd_tpu_torch.training import train_step
     from basd_tpu_torch.training.train_step import make_train_step
@@ -86,17 +105,7 @@ def main() -> int:
     bf16, f32 = torch.bfloat16, torch.float32
 
     def timed_ms(fn, reps: int) -> float:
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+        return device_ms(fn, dev, reps)
 
     def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -277,19 +286,20 @@ def main() -> int:
     from basd_tpu_torch.models import extract_intermediates
     from basd_tpu_torch.spectral import ops as spectral_ops
 
-    def jacobi_timing(a):
-        """The kernel at sweeps=6 as the main path calls it, timed beside the
-        plain version and torch.linalg.eigh, with its bound."""
+    def jacobi_timing(a, sweeps=6):
+        """The kernel (at sweeps=6 as the main path calls it), timed beside
+        the plain version and torch.linalg.eigh, with its bound."""
         bsz, nn_ = a.shape[0], a.shape[-1]
         n_even = nn_ + nn_ % 2
-        steps = (n_even - 1) * 6
+        steps = (n_even - 1) * sweeps
         # per step: the 2x2 block rotations of A (6 n^2) and of V^T (3 n^2)
         flops = bsz * steps * 9 * n_even * n_even
         nbytes = 4 * bsz * (2 * nn_ * nn_ + nn_)
         bnd, by = bound(nbytes, flops, f32)
         return dict(
-            ms=timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=6), 20),
-            plain_ms=timed_ms(lambda: jacobi.jacobi_eigh(a, sweeps=6), 3),
+            ms=timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=sweeps), 20 if nn_ <= 96 else 5),
+            plain_ms=timed_ms(lambda: jacobi.jacobi_eigh(a, sweeps=sweeps),
+                              3 if nn_ <= 96 else 1),
             library_ms=timed_ms(lambda: torch.linalg.eigh(a), 5),
             bound_ms=bnd, bound_by=by,
         )
@@ -453,6 +463,140 @@ def main() -> int:
             row.update(ms=timed_ms(lambda: wk._warp_cuda(x, params), 50))
         report["warp"][f"edge {(b, n, n, c)} {ops[0][0]}"] = row
 
+    # ---- slice 3: the tool paths' kernels (K5, K3 at n = 192, K6) ----
+    # K5 on the spectral tuner's own token covariances, and at an odd n
+    # (191, a principal submatrix): against its plain version at sweeps 9
+    # within 1e-4 of max|w| (the same rotations; at fewer sweeps the
+    # unconverged eigenvalues amplify rounding differences), against
+    # float64 LAPACK (reported), and the Marchenko-Pastur ranks equal to
+    # LAPACK's at sweeps 9.
+    def eigvals_timing(a, sweeps):
+        bsz, nn_ = a.shape[0], a.shape[-1]
+        n_even = nn_ + nn_ % 2
+        # per step: the 2x2 block rotations of A, about 6 n^2 flops
+        flops = bsz * (n_even - 1) * sweeps * 6 * n_even * n_even
+        bnd, by = bound(4 * bsz * (nn_ * nn_ + nn_), flops, f32)
+        return dict(
+            ms=timed_ms(lambda: kernel_jacobi_eigvals(a, sweeps=sweeps), 10),
+            plain_ms=timed_ms(lambda: jacobi.jacobi_eigvals(a, sweeps=sweeps), 1),
+            library_ms=timed_ms(lambda: torch.linalg.eigvalsh(a), 5),
+            bound_ms=bnd, bound_by=by,
+        )
+
+    staged = tune_spectral.stage(device=dev)
+    cov, m_tok = staged["cov"], staged["m"]
+    for what, a in (("tune_spectral covariances", cov),
+                    ("odd n", cov[:4, :191, :191].contiguous())):
+        bsz, nn_ = a.shape[0], a.shape[-1]
+        w = kernel_jacobi_eigvals(a, sweeps=9)
+        w3 = kernel_jacobi_eigvals(a, sweeps=3)
+        wp = jacobi.jacobi_eigvals(a, sweeps=9)
+        w64 = torch.linalg.eigvalsh(a.double())
+        torch.cuda.synchronize()
+        scale = w64.abs().amax(-1)
+        plain_rel = ((w - wp).abs().amax(-1) / scale).max().item()
+        eig_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
+        eig3_err = ((w3.double() - w64).abs().amax(-1) / scale).max().item()
+        ranks = tune_spectral.mp_ranks(w.double().cpu().numpy(), m_tok)
+        ranks64 = tune_spectral.mp_ranks(w64.cpu().numpy(), m_tok)
+        if not (plain_rel <= 1e-4 and (ranks == ranks64).all()):
+            raise AssertionError(
+                f"jacobi_eigvals {what} {(bsz, nn_, nn_)}: vs plain {plain_rel} "
+                f"(tol 1e-4), MP ranks {ranks.tolist()} vs LAPACK {ranks64.tolist()}")
+        row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
+                   eig_err=eig_err, eig3_err=eig3_err, mp_ranks=ranks.tolist(),
+                   **eigvals_timing(a, 9))
+        report.setdefault("jacobi_eigvals", {})[f"{what} ({bsz}, {nn_}, {nn_})"] = row
+        print(f"kernel jacobi_eigvals {what} {(bsz, nn_, nn_)} sweeps=9: vs plain "
+              f"{plain_rel:.3g} (tol 1e-4); vs LAPACK {eig_err:.3g} (sweeps=3 "
+              f"{eig3_err:.3g}); MP ranks {ranks.tolist()} equal LAPACK's; ms "
+              f"{row['ms']:.4f} plain {row['plain_ms']:.4f} linalg.eigvalsh "
+              f"{row['library_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']})")
+
+    # K3 through its device-memory V^T route (n = 192 > 168) on the sweeps
+    # probe's two spectrum families: against its plain version at sweeps
+    # 12 within 1e-4 of max|w|, V orthogonal within 2e-4 (about 2,300
+    # rotations in fp32); the errors against float64 LAPACK at sweeps 6 and
+    # 12 are reported.
+    cases = probe_jacobi_sweeps.make_cases(48, 192, np.random.default_rng(0))
+    for family, a64 in cases.items():
+        a = torch.from_numpy(a64.astype(np.float32)).to(dev)
+        w6, _ = kernel_jacobi_eigh(a, sweeps=6)
+        w, vec = kernel_jacobi_eigh(a, sweeps=12)
+        wp, _ = jacobi.jacobi_eigh(a, sweeps=12)
+        w64 = torch.from_numpy(np.linalg.eigvalsh(a64)).to(dev).flip(-1)
+        torch.cuda.synchronize()
+        scale = w64.abs().amax(-1)
+        plain_rel = ((w - wp).abs().amax(-1) / scale).max().item()
+        eig_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
+        eig6_err = ((w6.double() - w64).abs().amax(-1) / scale).max().item()
+        rec_err, orth_err = eig_residuals(w, vec, a)
+        if not (plain_rel <= 1e-4 and orth_err <= 2e-4):
+            raise AssertionError(
+                f"jacobi_eigh n=192 {family}: vs plain {plain_rel} (tol 1e-4), "
+                f"orth {orth_err} (tol 2e-4)")
+        row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
+                   eig6_err=eig6_err, eig_err=eig_err, recon_err=rec_err,
+                   orth_err=orth_err)
+        for sw in (6, 12):
+            row.update({f"{k}_sweeps{sw}": v for k, v in jacobi_timing(a, sw).items()})
+        report["jacobi_eigh"][f"{family} (48, 192, 192)"] = row
+        print(f"kernel jacobi_eigh {family} (48, 192, 192) (V^T in device memory): "
+              f"sweeps=12 vs plain {plain_rel:.3g} (tol 1e-4), orth {orth_err:.3g} "
+              f"(tol 2e-4), eig vs LAPACK {eig_err:.3g}, recon {rec_err:.3g}; "
+              f"sweeps=6 eig vs LAPACK {eig6_err:.3g}; ms {row['ms_sweeps6']:.4f} / "
+              f"{row['ms_sweeps12']:.4f} (sweeps 6 / 12) plain "
+              f"{row['plain_ms_sweeps6']:.4f} / {row['plain_ms_sweeps12']:.4f} "
+              f"linalg.eigh {row['library_ms_sweeps6']:.4f} bound "
+              f"{row['bound_ms_sweeps6']:.5f} / {row['bound_ms_sweeps12']:.5f} "
+              f"({row['bound_by_sweeps6']})")
+
+    # K6 in all six variants at the teacher's attention shape, on the
+    # attention probe's own inputs: each output element within one bf16
+    # ulp of the plain version's (the fp32 sums may round to neighbouring
+    # bf16 values where the two sum in another order). No PyTorch call
+    # computes these variants; K1 and SDPA, softmax attention on the same
+    # q, k, v, are timed beside them as the reference.
+    pb, ph, pn, phd = 256, 12, 257, 64
+    q6, k6, v6 = probe_attn_internals.make_inputs(pb, ph, pn, phd, dev)
+    nbytes = 4 * q6.numel() * q6.element_size()
+    bnd6, by6 = bound(nbytes, attn_probe.probe_flops(pb, ph, pn, phd), bf16)
+    native = lambda x: x.transpose(1, 2).reshape(pb, pn, ph * phd).contiguous()
+    qn, kn, vn = native(q6 * phd**-0.5), native(k6), native(v6)
+    k1_ms = timed_ms(lambda: attn._attention_forward_cuda(qn, kn, vn, phd), 10)
+    k1_plain_ms = timed_ms(lambda: attn.attention_forward_plain(qn, kn, vn, phd), 2)
+    k1_bnd, _ = bound(nbytes + 2 * pb * pn * ph * 4,
+                      attn_probe.probe_flops(pb, ph, pn, phd), bf16)
+    sdpa_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        q6 * phd**-0.5, k6, v6, scale=1.0), 10)
+    for variant in attn_probe.VARIANTS:
+        got = attn_probe.probe_attention(q6, k6, v6, variant=variant)
+        want = attn_probe.probe_attention_plain(q6, k6, v6, variant=variant)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.float().abs().clamp(min=1e-30))) - 7)
+        if not bool((diff <= ulp).all()):
+            raise AssertionError(
+                f"attn_probe {variant}: {int((diff > ulp).sum())} elements more "
+                f"than one bf16 ulp from the plain version (max {diff.max().item()})")
+        row = dict(
+            max_abs_err=diff.max().item(), differing=int((diff > 0).sum()),
+            ms=timed_ms(lambda: attn_probe.probe_attention(q6, k6, v6, variant=variant), 10),
+            plain_ms=timed_ms(lambda: attn_probe.probe_attention_plain(
+                q6, k6, v6, variant=variant), 2),
+            library_ms=None, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
+            k1_bound_ms=k1_bnd, sdpa_ms=sdpa_ms, bound_ms=bnd6, bound_by=by6,
+        )
+        report.setdefault("attn_probe", {})[f"{variant} {(pb, ph, pn, phd)}"] = row
+        print(f"kernel attn_probe {variant} {(pb, ph, pn, phd)}: max abs err "
+              f"{row['max_abs_err']:.3g} ({row['differing']} elements differ; tol "
+              f"1 bf16 ulp) ms {row['ms']:.4f} plain {row['plain_ms']:.4f} bound "
+              f"{bnd6:.4f} ({by6}); K1 fwd {k1_ms:.4f} (plain {k1_plain_ms:.4f}, "
+              f"bound {k1_bnd:.4f}) sdpa {sdpa_ms:.4f} at ({pb}, {pn}, "
+              f"{ph * phd}) H={ph}")
+    del staged, cov, q6, k6, v6, qn, kn, vn
+
     # ---- 5. the main path: bench.py's augmented step, then augment=False ----
     def main_path(augment, steps):
         init_fn, step_fn = make_train_step(
@@ -489,7 +633,8 @@ def main() -> int:
         launches = dict(kernels.LAUNCHES)
         per_step = {"attention_fwd": 24, "attention_bwd": 12,
                     "jacobi_eigh": 3 if k3_on_path else 0,
-                    "warp": 1 if augment else 0}
+                    "warp": 1 if augment else 0,
+                    "jacobi_eigvals": 0, "attn_probe": 0}
         for name, want in per_step.items():
             if launches[name] != want * steps:
                 raise AssertionError(
@@ -507,6 +652,43 @@ def main() -> int:
     # the deterministic path first: phase 7 profiles the augmented state
     _, _, _, det_step_ms = main_path(False, DETERMINISTIC_STEPS)
     step_fn, state, launches, step_ms = main_path(True, MAIN_STEPS)
+
+    # ---- 5b. the tool paths at full size, each through its kernels ----
+    def tool_path(name, run, needs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        for kname in needs:
+            if counts[kname] == 0:
+                raise AssertionError(f"{name}: no {kname} launch in {counts}")
+        print(f"path {name}: launches {counts}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        return result, counts
+
+    path_launches = {"train_step": launches}
+    tune, path_launches["tune_spectral"] = tool_path(
+        "tune_spectral", lambda: tune_spectral.main(device=dev),
+        ("jacobi_eigvals", "jacobi_eigh"))
+    if not {r["sweeps"]: r for r in tune["k5"]}[9]["ranks_equal"]:
+        raise AssertionError(f"tune_spectral: K5 MP ranks at sweeps 9 {tune['k5']}")
+    sweep_rows, path_launches["probe_jacobi_sweeps"] = tool_path(
+        "probe_jacobi_sweeps", lambda: probe_jacobi_sweeps.main(device=dev),
+        ("jacobi_eigh",))
+    # converged (sweeps 12), the eigenvalues in [0, 1] sit at the fp32 floor
+    worst12 = max(r["eig_err"] for r in sweep_rows if r["sweeps"] == 12)
+    if not worst12 <= 2e-4:
+        raise AssertionError(f"probe_jacobi_sweeps: sweeps 12 eig_err {worst12}")
+    probe, path_launches["probe_attn_internals"] = tool_path(
+        "probe_attn_internals", lambda: probe_attn_internals.main(device=dev),
+        ("attn_probe", "attention_fwd"))
+    # one check call and 2 + 10 timed calls per variant; tilemax launches twice
+    want = 13 * (len(attn_probe.VARIANTS) + 1)
+    if path_launches["probe_attn_internals"]["attn_probe"] != want:
+        raise AssertionError(f"probe_attn_internals: attn_probe launches "
+                             f"{path_launches['probe_attn_internals']} != {want}")
 
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both
@@ -617,16 +799,31 @@ def main() -> int:
                         if k3_on_path else "wide spectrum (48, 48, 48)"),
         "warp": ("basd_tpu_torch/csrc/warp.cu", "basd_tpu/ops/warp_kernel.py:161",
                  f"main path {(batch, img, img, 3)}"),
+        "jacobi_eigvals": ("basd_tpu_torch/csrc/jacobi_eigh.cu",
+                           "basd_tpu/spectral/pallas_jacobi.py:69",
+                           "tune_spectral covariances (12, 192, 192)"),
+        "attn_probe": ("basd_tpu_torch/csrc/attn_probe.cu",
+                       "tools/probe_attn_internals.py:25",
+                       "full (256, 12, 257, 64)"),
     }
+    # each kernel's launches on the path it serves: the train step for
+    # K1-K4, the spectral tuner for K5, the attention probe for K6
+    own_path = {"jacobi_eigvals": "tune_spectral",
+                "attn_probe": "probe_attn_internals"}
     measured = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
-                "orth_err")
+                "orth_err", "eig3_err", "k1_ms", "k1_plain_ms", "k1_bound_ms",
+                "sdpa_ms", "differing",
+                *(f"{k}_sweeps{sw}" for sw in (6, 12)
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")))
     entries = []
     for name, (src, replaces, main_case) in meta.items():
         row = report[name][main_case]
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "launches": path_launches[own_path.get(name, "train_step")][name],
+            "launches_by_path": {p: c[name] for p, c in path_launches.items()},
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "status": "ok",

@@ -139,3 +139,56 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 
 def test_package_docstring_states_the_device_rule():
     assert "CUDA" in basd_tpu_torch.__doc__ and "CPU" in basd_tpu_torch.__doc__
+
+
+def test_slice3_wrappers_never_route_a_device_tensor_to_the_plain_version(
+        monkeypatch):
+    """K5 and K6: a `meta` tensor raises in the wrapper; the plain version
+    is never called for it."""
+    from basd_tpu_torch.ops import attn_probe
+
+    _forbid(monkeypatch, tjacobi, "jacobi_eigvals")
+    _forbid(monkeypatch, attn_probe, "probe_attention_plain")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        jacobi_kernel.kernel_jacobi_eigvals(torch.empty((4, 48, 48), device="meta"))
+    x = torch.empty((8, 2, 17, 16), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        attn_probe.probe_attention(x, x, x, variant="full")
+
+
+def test_slice3_cuda_wrappers_reject_what_the_kernels_do_not_take():
+    """The CUDA-side checks of K3's device-memory route, K5 and K6 run
+    before any library is loaded."""
+    from basd_tpu_torch.ops import attn_probe
+
+    big = jacobi_kernel.MAX_N + 2
+    with pytest.raises(ValueError, match=f"n <= {jacobi_kernel.MAX_N}"):
+        jacobi_kernel._jacobi_raw_cuda(torch.zeros((1, big, big)), 6)
+    with pytest.raises(ValueError, match="even"):
+        jacobi_kernel._jacobi_eigvals_raw_cuda(torch.zeros((4, 191, 191)), 9)
+    with pytest.raises(ValueError, match="fp32"):
+        jacobi_kernel._jacobi_eigvals_raw_cuda(
+            torch.zeros((4, 192, 192), dtype=torch.float64), 9)
+    q = torch.zeros((8, 2, 17, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        attn_probe._probe_cuda(q.float(), q.float(), q.float(), "full", 8)
+    h16 = torch.zeros((8, 2, 17, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd = 64"):
+        attn_probe._probe_cuda(h16, h16, h16, "full", 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(1, 2)
+        attn_probe._probe_cuda(t, t, t, "full", 8)
+    with pytest.raises(ValueError, match="group"):
+        attn_probe._probe_cuda(q[:6], q[:6], q[:6], "tilemax", 8)
+    with pytest.raises(ValueError, match="variant"):
+        attn_probe._probe_cuda(q, q, q, "softmax", 8)
+
+
+def test_every_kernel_has_a_launch_counter_and_a_library():
+    from basd_tpu_torch import kernels
+
+    assert set(kernels.LAUNCHES) == {
+        "attention_fwd", "attention_bwd", "jacobi_eigh", "warp",
+        "jacobi_eigvals", "attn_probe"}
+    for name in kernels._SIGNATURES:
+        assert (kernels.CSRC / f"{name}.cu").exists(), name

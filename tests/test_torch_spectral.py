@@ -237,3 +237,143 @@ def test_masked_principal_angle_distance_value_and_gradient():
     (t32(cw) * d2).sum().backward()
     assert_close(d2, jd2, 1e-4, "distances")
     assert_close(tb.grad, jg, 1e-3, "gradient")
+
+
+def test_topk_basis_values_and_gradient_to_the_tokens():
+    """`topk_basis` from (4, 256, 64) tokens with a planted rank of k=24
+    (past it both sides return noise): singular values within 1e-5 of
+    scale, the top-8 projector within 1e-4 and the gradient of a loss on
+    both to the tokens within 1e-3, as for `topk_basis_gram`."""
+    x = planted_tokens((4, 256, 64), rank=24, seed=13)
+    rng = np.random.default_rng(14)
+    cw = rng.standard_normal((4, 24)).astype(np.float32)
+    mm = rng.standard_normal((4, 64, 64)).astype(np.float32)
+
+    def jloss(z):
+        basis, sv = jops.topk_basis(z, 24)
+        p = jnp.einsum("bdk,bek->bde", basis[..., :8], basis[..., :8])
+        return jnp.sum(cw * sv) + jnp.sum(p * mm), (basis, sv)
+
+    (_, (jb, js)), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x))
+    tz = t32(x).requires_grad_(True)
+    basis, sv = tops.topk_basis(tz, 24)
+    p = basis[..., :8] @ basis[..., :8].transpose(-1, -2)
+    ((t32(cw) * sv).sum() + (p * t32(mm)).sum()).backward()
+    assert basis.shape == (4, 64, 24) and sv.shape == (4, 24)
+    assert_close(sv, js, 1e-5, "singular values")
+    jp = np.einsum("bdk,bek->bde", np.asarray(jb)[..., :8], np.asarray(jb)[..., :8])
+    assert_close(p, jp, 1e-4, "top-8 projector")
+    assert_close(tz.grad, jg, 1e-3, "gradient to the tokens")
+
+
+@pytest.mark.parametrize("shape,rtol", [
+    ((3, 40, 12), 5e-4),  # D = 12: torch.linalg.eigh here, jnp.linalg.eigh there
+    ((4, 96, 24), 1e-3),  # D = 24 in the Jacobi gate: plain Jacobi here
+])
+def test_grassmann_basis_values_and_gradient(shape, rtol):
+    """Full basis and singular values of the centered tokens: singular
+    values within 1e-5 of scale (against numpy's SVD too), the projector on
+    the planted top-4 directions within rtol, and the gradient of a loss on
+    both within rtol: 5e-4 with two library eigensolvers (their fp32
+    eigenvectors differ by rounding, which the eigenvector backward's
+    1 / gap amplifies), 1e-3 with the plain Jacobi forward."""
+    b, m, d = shape
+    x = planted_tokens(shape, rank=4, seed=d)
+    rng = np.random.default_rng(d + 1)
+    cw = rng.standard_normal((b, d)).astype(np.float32)
+    mm = rng.standard_normal((b, d, d)).astype(np.float32)
+
+    def jloss(z):
+        basis, sv = jops.grassmann_basis(z)
+        p = jnp.einsum("bdk,bek->bde", basis[..., :4], basis[..., :4])
+        return jnp.sum(cw * sv) + jnp.sum(p * mm), (basis, sv)
+
+    (_, (jb, js)), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x))
+    tz = t32(x).requires_grad_(True)
+    basis, sv = tops.grassmann_basis(tz)
+    p = basis[..., :4] @ basis[..., :4].transpose(-1, -2)
+    ((t32(cw) * sv).sum() + (p * t32(mm)).sum()).backward()
+    assert basis.shape == (b, d, d) and sv.shape == (b, d)
+    assert_close(sv, js, 1e-5, "singular values")
+    xc = x - x.mean(1, keepdims=True)
+    assert_close(sv, np.linalg.svd(xc.astype(np.float64), compute_uv=False),
+                 1e-5, "singular values vs numpy")
+    jp = np.einsum("bdk,bek->bde", np.asarray(jb)[..., :4], np.asarray(jb)[..., :4])
+    assert_close(p, jp, rtol, "top-4 projector")
+    assert_close(tz.grad, jg, rtol, "gradient")
+
+
+@pytest.mark.parametrize("shape,rtol", [
+    ((3, 8, 20), 1e-4),   # small side 8: LAPACK on both sides
+    ((2, 20, 8), 1e-4),   # transposed
+    ((4, 24, 40), 1e-3),  # small side 24 in the Jacobi gate: plain Jacobi here
+])
+def test_nuclear_norm_value_and_gradient(shape, rtol):
+    """The eigh nuclear norm and its U V^T backward against the JAX custom
+    VJP: value within 1e-5 of scale (and of numpy's SVD), gradient within
+    rtol (1e-4 with LAPACK on both sides, 1e-3 with the plain Jacobi)."""
+    rng = np.random.default_rng(sum(shape))
+    c = rng.standard_normal(shape).astype(np.float32)
+    cw = rng.standard_normal(shape[0]).astype(np.float32)
+    jv, jg = jax.value_and_grad(
+        lambda x: jnp.sum(cw * jops.nuclear_norm(x)))(jnp.asarray(c))
+    tc = t32(c).requires_grad_(True)
+    val = tops.nuclear_norm(tc)
+    (t32(cw) * val).sum().backward()
+    assert val.shape == (shape[0],)
+    assert_close(val, np.asarray(jops.nuclear_norm(jnp.asarray(c))), 1e-5, "value")
+    assert_close(val, np.linalg.svd(c.astype(np.float64), compute_uv=False).sum(-1),
+                 1e-5, "value vs numpy")
+    assert_close(tc.grad, jg, rtol, "gradient")
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 40), (2, 40, 16)])
+def test_nuclear_norm_ns_value_and_gradient(shape):
+    """Newton-Schulz polar nuclear norm (24 iterations) and its backward P
+    against the JAX custom VJP: value within 1e-5 of scale, gradient within
+    1e-4 (fp32 rounding through 24 cubic steps); value within 1e-3 of
+    numpy's SVD (the truncated iteration's own error)."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    c = rng.standard_normal(shape).astype(np.float32)
+    cw = rng.standard_normal(shape[0]).astype(np.float32)
+    jfn = lambda x: jnp.sum(cw * jops.nuclear_norm_ns(x))
+    jg = jax.grad(jfn)(jnp.asarray(c))
+    tc = t32(c).requires_grad_(True)
+    val = tops.nuclear_norm_ns(tc)
+    (t32(cw) * val).sum().backward()
+    assert_close(val, np.asarray(jops.nuclear_norm_ns(jnp.asarray(c))), 1e-5, "value")
+    assert_close(val, np.linalg.svd(c.astype(np.float64), compute_uv=False).sum(-1),
+                 1e-3, "value vs numpy")
+    assert_close(tc.grad, jg, 1e-4, "gradient")
+
+
+def test_nuclear_norm_pair_values_and_gradients():
+    """||S^T T||_nuc on the token side and its two-sided backward against
+    the JAX custom VJP: 5e-5 of scale for the value and 1e-4 for both
+    gradients, as for `nuclear_norm_pair_gram`; 1e-4 for the value against
+    numpy's SVD of S^T T."""
+    rng = np.random.default_rng(21)
+    s = rng.standard_normal((3, 16, 40)).astype(np.float32)
+    t = rng.standard_normal((3, 16, 56)).astype(np.float32)
+    cw = np.array([1.0, -0.5, 2.0], np.float32)
+    jv = jops.nuclear_norm_pair(jnp.asarray(s), jnp.asarray(t))
+    jgs, jgt = jax.grad(
+        lambda a, b: jnp.sum(cw * jops.nuclear_norm_pair(a, b)), (0, 1)
+    )(jnp.asarray(s), jnp.asarray(t))
+    ts, tt = (t32(x).requires_grad_(True) for x in (s, t))
+    val = tops.nuclear_norm_pair(ts, tt)
+    (t32(cw) * val).sum().backward()
+    assert_close(val, jv, 5e-5, "value")
+    want = np.linalg.svd(np.einsum("bnd,bne->bde", s, t), compute_uv=False).sum(-1)
+    assert_close(val, want, 1e-4, "value vs SVD")
+    assert_close(ts.grad, jgs, 1e-4, "dS")
+    assert_close(tt.grad, jgt, 1e-4, "dT")
+
+
+def test_spectral_package_exports_the_jax_package_names():
+    import basd_tpu.spectral as jspec
+    import basd_tpu_torch.spectral as tspec
+
+    names = [n for n in dir(jspec) if not n.startswith("_")
+             and callable(getattr(jspec, n)) and n not in ("ops",)]
+    assert names and all(callable(getattr(tspec, n)) for n in names), names
