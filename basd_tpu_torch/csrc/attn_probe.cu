@@ -26,7 +26,7 @@
 // peaks the bytes bound it (0.121 ms against 0.053 ms of bf16 tensor-core
 // time). This first version is the simple one: one CTA per (32-row query
 // block, head, sequence) keeps its 32 x N score rows in shared memory as
-// fp32 (40 KB at N = 257, three CTAs per SM), streams k and v through
+// fp32 (66.6 KB at N = 257, three CTAs per SM), streams k and v through
 // shared memory in 64-key chunks (from L2 after the first of the N/32
 // query blocks of a head) and runs both products on the fp32 CUDA cores,
 // each thread on a 4 x 4 register tile. The

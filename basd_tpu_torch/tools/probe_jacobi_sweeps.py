@@ -18,7 +18,7 @@ The families are a uniform [0, 1]^2 spectrum (clustering near 0) and a
 principal-angle spectrum: sigma in [0, 1] with a tight cluster near 1
 (cross-Grams of overlapping subspaces), a spread mid-range and zeros (the
 rank mask). n = 192 takes the kernel's route with V^T in device memory.
-`smoke=True` runs (6, 16) at sweeps 2 and 3.
+`main(**SMOKE)` runs (6, 16) at sweeps 2 and 3.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
 from basd_tpu_torch.tools.timing import device_ms, fmt_ms
 
 SWEEPS = (5, 6, 7, 8, 9, 12)
+SMOKE = dict(batch=6, n=16, sweeps=(2, 3))
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
@@ -52,12 +53,10 @@ def make_cases(b: int, n: int, rng: np.random.Generator) -> dict:
 
 def main(
     *, device=None, batch: int = 48, n: int = 192, sweeps=SWEEPS,
-    smoke: bool = False, reps: int = 5,
+    reps: int = 5,
 ) -> list[dict]:
     """Print and return one row per (sweeps, family)."""
     dev = resolve_device(device)
-    if smoke:
-        batch, n, sweeps = 6, 16, (2, 3)
     rng = np.random.default_rng(0)
     cases = make_cases(batch, n, rng)
     want = {k: np.sort(np.linalg.eigvalsh(v), -1)[:, ::-1]

@@ -24,6 +24,7 @@ fp32 products run in full fp32 (TF32 off).
 
 from __future__ import annotations
 
+import contextlib
 import numpy as np
 import torch
 
@@ -101,13 +102,32 @@ def _d2(w_desc: np.ndarray, sw: np.ndarray) -> np.ndarray:
 
 def main(
     *, device=None, k: int = 96, k5_sweeps=K5_SWEEPS, k3_sweeps=K3_SWEEPS,
-    topk_grid=TOPK_GRID, reps: int = 10, **stage_kw,
+    topk_grid=TOPK_GRID, reps: int = 10, staged: dict | None = None,
+    **stage_kw,
 ) -> dict:
-    """Run the three sections; returns their rows."""
+    """Run the three sections; returns their rows. `staged`, a result of
+    `stage`, is used in place of staging the models again."""
     dev = resolve_device(device)
+    with _fp32_products(), torch.no_grad():
+        return _sections(dev, k, k5_sweeps, k3_sweeps, topk_grid, reps,
+                         staged or stage(device=dev, **stage_kw))
+
+
+@contextlib.contextmanager
+def _fp32_products():
+    """HIGHEST-precision products: TF32 off for the tool's run only."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    st = stage(device=dev, **stage_kw)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def _sections(dev, k, k5_sweeps, k3_sweeps, topk_grid, reps, st) -> dict:
     z_t, z_s, cov, m = st["z_t"], st["z_s"], st["cov"], st["m"]
     print(f"teacher tokens {st['t_tokens']}  student tokens {st['s_tokens']}")
     out = {"device": str(dev), "cov_shape": tuple(cov.shape)}
@@ -121,68 +141,67 @@ def main(
 
     print(f"\n== jacobi eigenvalues kernel (MP path, shape {tuple(cov.shape)}) ==")
     out["k5"] = []
-    with torch.no_grad():
-        for sweeps in k5_sweeps:
-            w = kernel_jacobi_eigvals(cov, sweeps=sweeps).cpu().numpy()
-            rank = mp_ranks(w.astype(np.float64), m)
-            relerr = float(np.max(np.abs(w - w_exact)
-                                  / np.abs(w_exact).max(-1, keepdims=True)))
-            ms = device_ms(lambda: kernel_jacobi_eigvals(cov, sweeps=sweeps),
-                           dev, reps)
-            ok = bool((rank == rank_exact).all())
-            out["k5"].append(dict(sweeps=sweeps, ms=ms, relerr=relerr,
-                                  ranks_equal=ok, ranks=rank.tolist()))
-            print(f"sweeps={sweeps}  {fmt_ms(ms)}  max-relerr={relerr:.2e} "
-                  f"ranks {'OK ' if ok else 'DIFF'} {rank}")
+    for sweeps in k5_sweeps:
+        w = kernel_jacobi_eigvals(cov, sweeps=sweeps).cpu().numpy()
+        rank = mp_ranks(w.astype(np.float64), m)
+        relerr = float(np.max(np.abs(w - w_exact)
+                              / np.abs(w_exact).max(-1, keepdims=True)))
+        ms = device_ms(lambda: kernel_jacobi_eigvals(cov, sweeps=sweeps),
+                       dev, reps)
+        ok = bool((rank == rank_exact).all())
+        out["k5"].append(dict(sweeps=sweeps, ms=ms, relerr=relerr,
+                              ranks_equal=ok, ranks=rank.tolist()))
+        print(f"sweeps={sweeps}  {fmt_ms(ms)}  max-relerr={relerr:.2e} "
+              f"ranks {'OK ' if ok else 'DIFF'} {rank}")
 
-        # ---- angle-path eigh: Gram of the masked cross bases (K x K) ----
-        k = min(k, d)
-        p = z_s.shape[0]
-        basis_t, svals_t = topk_basis(z_t, k)
-        basis_s, _ = topk_basis(z_s, k)
-        ranks = torch.from_numpy(np.clip(rank_exact, 1, k)).to(dev)
-        mask = (torch.arange(k, device=dev)[None, :] < ranks[:, None]).float()
-        cross = torch.einsum("pdi,ldj->plij", basis_s, basis_t)
-        cross = cross * mask[None, :, None, :]
-        gram = torch.einsum("plij,plkj->plik", cross, cross).reshape(-1, k, k)
-        gram = gram.contiguous()
-        w_c_exact = np.linalg.eigvalsh(gram.cpu().numpy().astype(np.float64))[:, ::-1]
-        sw_rep = np.tile((svals_t * mask).cpu().numpy(), (p, 1))
-        d2_exact = _d2(w_c_exact, sw_rep)
+    # ---- angle-path eigh: Gram of the masked cross bases (K x K) ----
+    k = min(k, d)
+    p = z_s.shape[0]
+    basis_t, svals_t = topk_basis(z_t, k)
+    basis_s, _ = topk_basis(z_s, k)
+    ranks = torch.from_numpy(np.clip(rank_exact, 1, k)).to(dev)
+    mask = (torch.arange(k, device=dev)[None, :] < ranks[:, None]).float()
+    cross = torch.einsum("pdi,ldj->plij", basis_s, basis_t)
+    cross = cross * mask[None, :, None, :]
+    gram = torch.einsum("plij,plkj->plik", cross, cross).reshape(-1, k, k)
+    gram = gram.contiguous()
+    w_c_exact = np.linalg.eigvalsh(gram.cpu().numpy().astype(np.float64))[:, ::-1]
+    sw_rep = np.tile((svals_t * mask).cpu().numpy(), (p, 1))
+    d2_exact = _d2(w_c_exact, sw_rep)
 
-        print(f"\n== jacobi eigh kernel (angle path, shape {tuple(gram.shape)}) ==")
-        out["k3"] = []
-        for sweeps in k3_sweeps:
-            w, _ = kernel_jacobi_eigh(gram, sweeps=sweeps)
-            err = float(np.max(np.abs(_d2(w.cpu().numpy(), sw_rep) - d2_exact)))
-            ms = device_ms(lambda: kernel_jacobi_eigh(gram, sweeps=sweeps),
-                           dev, reps)
-            out["k3"].append(dict(sweeps=sweeps, ms=ms, d2_err=err))
-            print(f"sweeps={sweeps}  {fmt_ms(ms)}  max-d2-err={err:.2e}")
+    print(f"\n== jacobi eigh kernel (angle path, shape {tuple(gram.shape)}) ==")
+    out["k3"] = []
+    for sweeps in k3_sweeps:
+        w, _ = kernel_jacobi_eigh(gram, sweeps=sweeps)
+        err = float(np.max(np.abs(_d2(w.cpu().numpy(), sw_rep) - d2_exact)))
+        ms = device_ms(lambda: kernel_jacobi_eigh(gram, sweeps=sweeps),
+                       dev, reps)
+        out["k3"].append(dict(sweeps=sweeps, ms=ms, d2_err=err))
+        print(f"sweeps={sweeps}  {fmt_ms(ms)}  max-d2-err={err:.2e}")
 
-        # ---- topk_basis grid, against the exact LAPACK top-k basis ----
-        z_np = z_t.cpu().numpy().astype(np.float64)
-        zc = z_np - z_np.mean(1, keepdims=True)
-        w_g, v_g = np.linalg.eigh(np.einsum("lmd,lme->lde", zc, zc))
-        basis_exact = v_g[..., ::-1][..., :k]
-        svals_exact = np.sqrt(np.clip(w_g[..., ::-1][..., :k], 0, None))
+    # ---- topk_basis grid, against the exact LAPACK top-k basis ----
+    z_np = z_t.cpu().numpy().astype(np.float64)
+    zc = z_np - z_np.mean(1, keepdims=True)
+    w_g, v_g = np.linalg.eigh(np.einsum("lmd,lme->lde", zc, zc))
+    basis_exact = v_g[..., ::-1][..., :k]
+    svals_exact = np.sqrt(np.clip(w_g[..., ::-1][..., :k], 0, None))
 
-        print(f"\n== topk_basis (teacher side, shape {tuple(z_t.shape)} k = {k}) ==")
-        out["topk"] = []
-        for g_iters, polar_iters in topk_grid:
-            run = lambda: topk_basis(z_t, k, g_iters=g_iters, polar_iters=polar_iters)
-            b_c, s_c = run()
-            proj = np.einsum("ldi,ldj->lij", b_c.cpu().numpy(), basis_exact)
-            sines2 = 1 - np.clip((proj**2).sum(1), 0, 1)
-            werr = float(((svals_exact**2 * sines2).sum(-1)
-                          / (svals_exact**2).sum(-1)).max())
-            serr = float(np.max(np.abs(s_c.cpu().numpy() - svals_exact)
-                                / svals_exact[:, :1]))
-            ms = device_ms(run, dev, reps)
-            out["topk"].append(dict(g_iters=g_iters, polar_iters=polar_iters,
-                                    ms=ms, weighted_sin2_err=werr, sval_relerr=serr))
-            print(f"g_iters={g_iters} polar={polar_iters:2d}  {fmt_ms(ms)}  "
-                  f"weighted-sin2-err={werr:.2e} sval-relerr={serr:.2e}")
+    print(f"\n== topk_basis (teacher side, shape {tuple(z_t.shape)} k = {k}) ==")
+    out["topk"] = []
+    for g_iters, polar_iters in topk_grid:
+        run = lambda: topk_basis(z_t, k, g_iters=g_iters, polar_iters=polar_iters)
+        b_c, s_c = run()
+        proj = np.einsum("ldi,ldj->lij", b_c.cpu().numpy(), basis_exact)
+        sines2 = 1 - np.clip((proj**2).sum(1), 0, 1)
+        werr = float(((svals_exact**2 * sines2).sum(-1)
+                      / (svals_exact**2).sum(-1)).max())
+        serr = float(np.max(np.abs(s_c.cpu().numpy() - svals_exact)
+                            / svals_exact[:, :1]))
+        ms = device_ms(run, dev, reps)
+        out["topk"].append(dict(g_iters=g_iters, polar_iters=polar_iters,
+                                ms=ms, weighted_sin2_err=werr, sval_relerr=serr))
+        print(f"g_iters={g_iters} polar={polar_iters:2d}  {fmt_ms(ms)}  "
+              f"weighted-sin2-err={werr:.2e} sval-relerr={serr:.2e}")
     return out
 
 

@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      (12, 192, 192) token covariances and at an odd n (191); K3 at
      (48, 192, 192), its device-memory V^T route, on the sweeps probe's two
      spectrum families; K6 in all six variants at the teacher's attention
-     shape (256, 12, 257, 64);
+     shape (256, 12, 257, 64). At these tool shapes the kernels' own times
+     (K5, K3 at n = 192, K6 and K1 beside it) are the tools' readings in
+     phase 5b, and the tuner reuses the features staged here;
   5. main path: a short `make_train_step(augment=False)` run, then train
      steps of `make_train_step(augment=True)` (bench.py's step), each with
      the kernels' launch counters reset just before and read just after;
@@ -286,9 +288,10 @@ def main() -> int:
     from basd_tpu_torch.models import extract_intermediates
     from basd_tpu_torch.spectral import ops as spectral_ops
 
-    def jacobi_timing(a, sweeps=6):
+    def jacobi_timing(a, sweeps=6, kernel=True):
         """The kernel (at sweeps=6 as the main path calls it), timed beside
-        the plain version and torch.linalg.eigh, with its bound."""
+        the plain version and torch.linalg.eigh, with its bound. kernel=False
+        leaves the kernel's time to the tool that times it (phase 5b)."""
         bsz, nn_ = a.shape[0], a.shape[-1]
         n_even = nn_ + nn_ % 2
         steps = (n_even - 1) * sweeps
@@ -296,13 +299,15 @@ def main() -> int:
         flops = bsz * steps * 9 * n_even * n_even
         nbytes = 4 * bsz * (2 * nn_ * nn_ + nn_)
         bnd, by = bound(nbytes, flops, f32)
-        return dict(
-            ms=timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=sweeps), 20 if nn_ <= 96 else 5),
+        row = dict(
             plain_ms=timed_ms(lambda: jacobi.jacobi_eigh(a, sweeps=sweeps),
                               3 if nn_ <= 96 else 1),
             library_ms=timed_ms(lambda: torch.linalg.eigh(a), 5),
             bound_ms=bnd, bound_by=by,
         )
+        if kernel:
+            row["ms"] = timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=sweeps), 20)
+        return row
 
     def eig_residuals(w, vec, a):
         """Reconstruction ||A - V diag(w) V^T|| / ||A|| and orthogonality
@@ -469,19 +474,22 @@ def main() -> int:
     # within 1e-4 of max|w| (the same rotations; at fewer sweeps the
     # unconverged eigenvalues amplify rounding differences), against
     # float64 LAPACK (reported), and the Marchenko-Pastur ranks equal to
-    # LAPACK's at sweeps 9.
-    def eigvals_timing(a, sweeps):
+    # LAPACK's at sweeps 9. The tuner's covariances are staged once, here;
+    # the tuner's run in phase 5b reuses them and times the kernel there.
+    def eigvals_timing(a, sweeps, kernel):
         bsz, nn_ = a.shape[0], a.shape[-1]
         n_even = nn_ + nn_ % 2
         # per step: the 2x2 block rotations of A, about 6 n^2 flops
         flops = bsz * (n_even - 1) * sweeps * 6 * n_even * n_even
         bnd, by = bound(4 * bsz * (nn_ * nn_ + nn_), flops, f32)
-        return dict(
-            ms=timed_ms(lambda: kernel_jacobi_eigvals(a, sweeps=sweeps), 10),
+        row = dict(
             plain_ms=timed_ms(lambda: jacobi.jacobi_eigvals(a, sweeps=sweeps), 1),
             library_ms=timed_ms(lambda: torch.linalg.eigvalsh(a), 5),
             bound_ms=bnd, bound_by=by,
         )
+        if kernel:
+            row["ms"] = timed_ms(lambda: kernel_jacobi_eigvals(a, sweeps=sweeps), 10)
+        return row
 
     staged = tune_spectral.stage(device=dev)
     cov, m_tok = staged["cov"], staged["m"]
@@ -505,19 +513,22 @@ def main() -> int:
                 f"(tol 1e-4), MP ranks {ranks.tolist()} vs LAPACK {ranks64.tolist()}")
         row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
                    eig_err=eig_err, eig3_err=eig3_err, mp_ranks=ranks.tolist(),
-                   **eigvals_timing(a, 9))
+                   **eigvals_timing(a, 9, kernel=what == "odd n"))
         report.setdefault("jacobi_eigvals", {})[f"{what} ({bsz}, {nn_}, {nn_})"] = row
+        ms = f"{row['ms']:.4f}" if "ms" in row else "(phase 5b)"
         print(f"kernel jacobi_eigvals {what} {(bsz, nn_, nn_)} sweeps=9: vs plain "
               f"{plain_rel:.3g} (tol 1e-4); vs LAPACK {eig_err:.3g} (sweeps=3 "
               f"{eig3_err:.3g}); MP ranks {ranks.tolist()} equal LAPACK's; ms "
-              f"{row['ms']:.4f} plain {row['plain_ms']:.4f} linalg.eigvalsh "
+              f"{ms} plain {row['plain_ms']:.4f} linalg.eigvalsh "
               f"{row['library_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']})")
 
     # K3 through its device-memory V^T route (n = 192 > 168) on the sweeps
     # probe's two spectrum families: against its plain version at sweeps
-    # 12 within 1e-4 of max|w|, V orthogonal within 2e-4 (about 2,300
-    # rotations in fp32); the errors against float64 LAPACK at sweeps 6 and
-    # 12 are reported.
+    # 12 within 1e-4 of max|w|, V orthogonal and A = V diag(w) V^T within
+    # 2e-4 (about 2,300 rotations in fp32; a V^T scratch left unrotated
+    # gives a reconstruction error of order 1); the eigenvalue errors
+    # against float64 LAPACK at sweeps 6 and 12 are reported. The sweeps
+    # probe times the kernel in phase 5b.
     cases = probe_jacobi_sweeps.make_cases(48, 192, np.random.default_rng(0))
     for family, a64 in cases.items():
         a = torch.from_numpy(a64.astype(np.float32)).to(dev)
@@ -531,22 +542,23 @@ def main() -> int:
         eig_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
         eig6_err = ((w6.double() - w64).abs().amax(-1) / scale).max().item()
         rec_err, orth_err = eig_residuals(w, vec, a)
-        if not (plain_rel <= 1e-4 and orth_err <= 2e-4):
+        if not (plain_rel <= 1e-4 and orth_err <= 2e-4 and rec_err <= 2e-4):
             raise AssertionError(
                 f"jacobi_eigh n=192 {family}: vs plain {plain_rel} (tol 1e-4), "
-                f"orth {orth_err} (tol 2e-4)")
+                f"orth {orth_err} recon {rec_err} (tol 2e-4)")
         row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
                    eig6_err=eig6_err, eig_err=eig_err, recon_err=rec_err,
                    orth_err=orth_err)
         for sw in (6, 12):
-            row.update({f"{k}_sweeps{sw}": v for k, v in jacobi_timing(a, sw).items()})
+            row.update({f"{k}_sweeps{sw}": v
+                        for k, v in jacobi_timing(a, sw, kernel=False).items()})
         report["jacobi_eigh"][f"{family} (48, 192, 192)"] = row
         print(f"kernel jacobi_eigh {family} (48, 192, 192) (V^T in device memory): "
               f"sweeps=12 vs plain {plain_rel:.3g} (tol 1e-4), orth {orth_err:.3g} "
-              f"(tol 2e-4), eig vs LAPACK {eig_err:.3g}, recon {rec_err:.3g}; "
-              f"sweeps=6 eig vs LAPACK {eig6_err:.3g}; ms {row['ms_sweeps6']:.4f} / "
-              f"{row['ms_sweeps12']:.4f} (sweeps 6 / 12) plain "
+              f"recon {rec_err:.3g} (tol 2e-4), eig vs LAPACK {eig_err:.3g}; "
+              f"sweeps=6 eig vs LAPACK {eig6_err:.3g}; plain "
               f"{row['plain_ms_sweeps6']:.4f} / {row['plain_ms_sweeps12']:.4f} "
+              f"(sweeps 6 / 12) "
               f"linalg.eigh {row['library_ms_sweeps6']:.4f} bound "
               f"{row['bound_ms_sweeps6']:.5f} / {row['bound_ms_sweeps12']:.5f} "
               f"({row['bound_by_sweeps6']})")
@@ -555,15 +567,15 @@ def main() -> int:
     # attention probe's own inputs: each output element within one bf16
     # ulp of the plain version's (the fp32 sums may round to neighbouring
     # bf16 values where the two sum in another order). No PyTorch call
-    # computes these variants; K1 and SDPA, softmax attention on the same
-    # q, k, v, are timed beside them as the reference.
+    # computes these variants; SDPA, softmax attention on the same q, k, v,
+    # is timed beside them as the reference. The attention probe times the
+    # kernel and K1 in phase 5b.
     pb, ph, pn, phd = 256, 12, 257, 64
     q6, k6, v6 = probe_attn_internals.make_inputs(pb, ph, pn, phd, dev)
     nbytes = 4 * q6.numel() * q6.element_size()
     bnd6, by6 = bound(nbytes, attn_probe.probe_flops(pb, ph, pn, phd), bf16)
     native = lambda x: x.transpose(1, 2).reshape(pb, pn, ph * phd).contiguous()
     qn, kn, vn = native(q6 * phd**-0.5), native(k6), native(v6)
-    k1_ms = timed_ms(lambda: attn._attention_forward_cuda(qn, kn, vn, phd), 10)
     k1_plain_ms = timed_ms(lambda: attn.attention_forward_plain(qn, kn, vn, phd), 2)
     k1_bnd, _ = bound(nbytes + 2 * pb * pn * ph * 4,
                       attn_probe.probe_flops(pb, ph, pn, phd), bf16)
@@ -582,20 +594,18 @@ def main() -> int:
                 f"than one bf16 ulp from the plain version (max {diff.max().item()})")
         row = dict(
             max_abs_err=diff.max().item(), differing=int((diff > 0).sum()),
-            ms=timed_ms(lambda: attn_probe.probe_attention(q6, k6, v6, variant=variant), 10),
             plain_ms=timed_ms(lambda: attn_probe.probe_attention_plain(
                 q6, k6, v6, variant=variant), 2),
-            library_ms=None, k1_ms=k1_ms, k1_plain_ms=k1_plain_ms,
+            library_ms=None, k1_plain_ms=k1_plain_ms,
             k1_bound_ms=k1_bnd, sdpa_ms=sdpa_ms, bound_ms=bnd6, bound_by=by6,
         )
         report.setdefault("attn_probe", {})[f"{variant} {(pb, ph, pn, phd)}"] = row
         print(f"kernel attn_probe {variant} {(pb, ph, pn, phd)}: max abs err "
               f"{row['max_abs_err']:.3g} ({row['differing']} elements differ; tol "
-              f"1 bf16 ulp) ms {row['ms']:.4f} plain {row['plain_ms']:.4f} bound "
-              f"{bnd6:.4f} ({by6}); K1 fwd {k1_ms:.4f} (plain {k1_plain_ms:.4f}, "
-              f"bound {k1_bnd:.4f}) sdpa {sdpa_ms:.4f} at ({pb}, {pn}, "
-              f"{ph * phd}) H={ph}")
-    del staged, cov, q6, k6, v6, qn, kn, vn
+              f"1 bf16 ulp) plain {row['plain_ms']:.4f} bound {bnd6:.4f} ({by6}); "
+              f"K1 fwd plain {k1_plain_ms:.4f}, bound {k1_bnd:.4f}; sdpa "
+              f"{sdpa_ms:.4f} at ({pb}, {pn}, {ph * phd}) H={ph}")
+    del cov, q6, k6, v6, qn, kn, vn
 
     # ---- 5. the main path: bench.py's augmented step, then augment=False ----
     def main_path(augment, steps):
@@ -670,7 +680,7 @@ def main() -> int:
 
     path_launches = {"train_step": launches}
     tune, path_launches["tune_spectral"] = tool_path(
-        "tune_spectral", lambda: tune_spectral.main(device=dev),
+        "tune_spectral", lambda: tune_spectral.main(device=dev, staged=staged),
         ("jacobi_eigvals", "jacobi_eigh"))
     if not {r["sweeps"]: r for r in tune["k5"]}[9]["ranks_equal"]:
         raise AssertionError(f"tune_spectral: K5 MP ranks at sweeps 9 {tune['k5']}")
@@ -689,6 +699,16 @@ def main() -> int:
     if path_launches["probe_attn_internals"]["attn_probe"] != want:
         raise AssertionError(f"probe_attn_internals: attn_probe launches "
                              f"{path_launches['probe_attn_internals']} != {want}")
+    # the kernels' times at the tools' shapes are the tools' own readings;
+    # the sweeps probe times K3 on the uniform family
+    report["jacobi_eigvals"]["tune_spectral covariances (12, 192, 192)"]["ms"] = \
+        {r["sweeps"]: r["ms"] for r in tune["k5"]}[9]
+    k3_ms = {r["sweeps"]: r["ms"] for r in sweep_rows}
+    for sw in (6, 12):
+        report["jacobi_eigh"]["uniform (48, 192, 192)"][f"ms_sweeps{sw}"] = k3_ms[sw]
+    for variant, ms in probe["variants"].items():
+        report["attn_probe"][f"{variant} {(pb, ph, pn, phd)}"].update(
+            ms=ms, k1_ms=probe["attention_fwd"])
 
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both

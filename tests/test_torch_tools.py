@@ -26,10 +26,17 @@ def test_tune_spectral_micro(capsys):
     """vit_mini teacher (6 layers, D=96), vit_micro student (D=64) at
     16 px, batch 8, k=16: the MP ranks of K5's plain version equal LAPACK's
     once converged, the d^2 error of K3's plain version sits at the fp32
-    floor, and the top-k grid errors fall as the iterations grow."""
-    out = tune_spectral.main(device="cpu", k=16, k5_sweeps=(3, 9),
-                             k3_sweeps=(4, 9), topk_grid=((3, 6), (6, 14)),
-                             **MICRO)
+    floor, and the top-k grid errors fall as the iterations grow. The
+    tool turns TF32 off for its own run only."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = tune_spectral.main(device="cpu", k=16, k5_sweeps=(3, 9),
+                                 k3_sweeps=(4, 9), topk_grid=((3, 6), (6, 14)),
+                                 **MICRO)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     text = capsys.readouterr().out
     for section in ("exact MP ranks", "jacobi eigenvalues kernel",
                     "jacobi eigh kernel", "topk_basis"):
@@ -46,9 +53,9 @@ def test_tune_spectral_micro(capsys):
 
 
 def test_probe_jacobi_sweeps_smoke(capsys):
-    """smoke=True: (6, 16) at sweeps 2 and 3 on both spectrum families;
-    one more sweep cuts the uniform family's error."""
-    rows = probe_jacobi_sweeps.main(device="cpu", smoke=True)
+    """SMOKE: (6, 16) at sweeps 2 and 3 on both spectrum families; one
+    more sweep cuts the uniform family's error."""
+    rows = probe_jacobi_sweeps.main(device="cpu", **probe_jacobi_sweeps.SMOKE)
     text = capsys.readouterr().out
     assert [(r["sweeps"], r["family"]) for r in rows] == [
         (2, "uniform"), (2, "angles"), (3, "uniform"), (3, "angles")]
