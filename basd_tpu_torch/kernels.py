@@ -145,6 +145,17 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def sass(name: str) -> str:
+    """The machine code of library `name` as `cuobjdump -sass` prints it
+    (the toolkit's, beside `nvcc`), built first if needed."""
+    library(name)
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run(
+        [str(tool), "-sass", str(_lib_path(name))],
+        check=True, capture_output=True, text=True,
+    ).stdout
+
+
 def check(status: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (its `cudaGetLastError`)."""
     if status != 0:

@@ -13,7 +13,10 @@ The forward saves (m, denom) as (B, N, H) fp32 and the backward recomputes
 e from them, with dd = rowsum(dO * O) per head computed outside the kernel.
 
 The tensor's device picks the implementation: CUDA tensors launch the
-kernels (or raise), CPU tensors take the plain versions.
+kernels (or raise), CPU tensors take the plain versions. On the card bf16
+runs on the tensor cores and needs 16-byte aligned q, k, v, dO (base
+pointer, batch and row strides); fp32 runs on the CUDA cores, since
+tensor cores would take it as TF32.
 """
 
 from __future__ import annotations
@@ -96,6 +99,12 @@ def _check_cuda(tensors, names, head_dim):
             raise ValueError(f"{name} must match q in shape, dtype and device")
         if x.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride in its last dim")
+        # the bf16 kernels load 16-byte pieces by cp.async
+        if q.dtype == torch.bfloat16 and (
+                x.data_ptr() % 16 or x.stride(0) % 8 or x.stride(1) % 8):
+            raise ValueError(
+                f"{name} must be 16-byte aligned for the bf16 kernel: base "
+                "pointer, and batch and row strides in multiples of 8")
 
 
 def _check_stats(stats, q, head_dim):

@@ -1,4 +1,5 @@
-"""Device timing of the tools: CUDA events around repeated calls."""
+"""Device timing of the tools: CUDA events around repeated calls, and the
+kernels' own device time under torch.profiler."""
 
 from __future__ import annotations
 
@@ -21,6 +22,43 @@ def device_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2):
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def device_events(prof):
+    """The device kernels of a torch.profiler run, by name. User annotations
+    (ranges such as the optimizer's step) also carry device time and are
+    left out, so nothing counts twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_us(event) -> float:
+    """An event's own device time in microseconds."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def kernel_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2):
+    """Device time per call of `fn()`: the time of the kernels it launches,
+    summed by torch.profiler over `reps` calls, over `reps`. Unlike
+    `device_ms` it leaves out the gaps in which the card waits for the host
+    to enqueue the next launch. None on the CPU."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError("torch.profiler recorded no device kernels")
+    return sum(device_us(e) for e in events) / 1e3 / reps
 
 
 def fmt_ms(ms) -> str:

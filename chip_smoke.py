@@ -6,20 +6,25 @@
 Phases, in order; any failure raises and the exit code is not 0:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
-     sm_90a, one process per source, all at once);
+     sm_90a, one process per source, all at once); the HMMA (tensor-core)
+     instructions in each bf16 attention kernel's SASS (cuobjdump), none
+     allowed to have none;
   3. staging: the Table-3 models at full width (DeiT-Tiny/4 student at
      32 px, DINOv2 ViT-B/14 teacher, bf16, random weights from seeds,
      batch 128) and the calibrated subspace K;
   4. kernels: each kernel against its plain torch version on the card at
      the shapes of the paths below, with its stated tolerance, timed beside
      the plain version and a PyTorch library yardstick where one exists:
-     K1-K4 at the train step's shapes; K5 on the spectral tuner's own
-     (12, 192, 192) token covariances and at an odd n (191); K3 at
-     (48, 192, 192), its device-memory V^T route, on the sweeps probe's two
-     spectrum families; K6 in all six variants at the teacher's attention
-     shape (256, 12, 257, 64). At these tool shapes the kernels' own times
-     (K5, K3 at n = 192, K6 and K1 beside it) are the tools' readings in
-     phase 5b, and the tuner reuses the features staged here;
+     K1-K4 at the train step's shapes, K1 and K2 also at the Table-1
+     student's (256, 197, 384) H=6 and at the gate's edges, bf16 K1/K2 and
+     SDPA also by device time alone (torch.profiler); K5 on the spectral
+     tuner's own (12, 192, 192) token covariances and at an odd n (191);
+     K3 at (48, 192, 192), its device-memory V^T route, on the sweeps
+     probe's two spectrum families; K6 in all six variants at the
+     teacher's attention shape (256, 12, 257, 64), with K1 checked on the
+     same q, k, v. At these tool shapes the kernels' own times (K5, K3 at
+     n = 192, K6 and K1 beside it) are the tools' readings in phase 5b,
+     and the tuner reuses the features staged here;
   5. main path: a short `make_train_step(augment=False)` run, then train
      steps of `make_train_step(augment=True)` (bench.py's step), each with
      the kernels' launch counters reset just before and read just after;
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,7 +100,12 @@ def main() -> int:
         probe_jacobi_sweeps,
         tune_spectral,
     )
-    from basd_tpu_torch.tools.timing import device_ms
+    from basd_tpu_torch.tools.timing import (
+        device_events,
+        device_ms,
+        device_us,
+        kernel_ms,
+    )
     from basd_tpu_torch.spectral.ops import use_jacobi
     from basd_tpu_torch.training import train_step
     from basd_tpu_torch.training.train_step import make_train_step
@@ -131,6 +142,20 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    # the bf16 attention kernels (K1, K2's two launches, one per head_dim of
+    # the gate) run on the tensor cores: HMMA instructions in each one's SASS
+    hmma, fn = {}, None
+    for line in kernels.sass("attention").splitlines():
+        if "Function :" in line:
+            found = re.search(r"(attn_\w+?_mma)ILi(\d+)E", line)
+            fn = f"{found.group(1)}<{found.group(2)}>" if found else None
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma[fn] += 1
+    if len(hmma) != 3 * 8 or min(hmma.values()) == 0:
+        raise AssertionError(f"bf16 attention kernels without HMMA: {hmma}")
+    print(f"sass: HMMA instructions per bf16 attention kernel {hmma}")
 
     # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
     img, batch, num_classes, patch = 32, 128, 100, 4
@@ -170,90 +195,87 @@ def main() -> int:
         b, n, d = x.shape
         return x.reshape(b, n, d // hd, hd).transpose(1, 2).contiguous()
 
-    att_cases = [("student", 128, 65, 192, 3), ("teacher", 128, 5, 768, 12)]
+    # K1 at the Table-3 shapes and the Table-1 student's, K2 where a
+    # backward runs (the student; the teacher is frozen), bf16 and fp32,
+    # each beside SDPA (forward or its autograd backward). bf16 runs on the
+    # tensor cores; its times are read twice: `ms` by CUDA events around a
+    # loop of calls (which a kernel of a few us leaves at the host's
+    # enqueue rate) and `device_ms` by torch.profiler (the kernels alone).
+    att_cases = [("student", 128, 65, 192, 3), ("teacher", 128, 5, 768, 12),
+                 ("Table-1 student", 256, 197, 384, 6)]
+    bwd_cases = ("student", "Table-1 student")
+    fmt = lambda x: "-" if x is None else f"{x:.4f}"
+
+    def attention_row(what, errs, tol, dtype, bnd, kernel, plain, library):
+        worst = max(e[1] for e in errs)
+        if not worst <= tol:
+            raise AssertionError(f"{what}: rel err {worst} > {tol}")
+        row = dict(max_abs_err=max(e[0] for e in errs), rel_err=worst, tol=tol,
+                   ms=timed_ms(kernel, 50), plain_ms=timed_ms(plain, 20),
+                   library_ms=timed_ms(library, 50), bound_ms=bnd[0],
+                   bound_by=bnd[1], device_ms=None, library_device_ms=None)
+        if dtype == bf16:
+            row.update(device_ms=kernel_ms(kernel, dev),
+                       library_device_ms=kernel_ms(library, dev))
+        print(f"kernel {what}: rel err {worst:.3g} (tol {tol}) ms {row['ms']:.4f} "
+              f"(device {fmt(row['device_ms'])}) plain {row['plain_ms']:.4f} "
+              f"sdpa {row['library_ms']:.4f} (device "
+              f"{fmt(row['library_device_ms'])}) bound {bnd[0]:.4f} ({bnd[1]})")
+        return row
+
     for label, b, n, d, h in att_cases:
         hd = d // h
         for dtype in (bf16, f32):
             tol = 2e-2 if dtype == bf16 else 1e-5
+            dname = str(dtype).split(".")[-1]
+            case = f"{label} B={b} N={n} D={d} H={h} {dname}"
             q, k, v = attention_inputs(b, n, d, hd, dtype)
             got = attn._attention_forward_cuda(q, k, v, hd)
             want = attn.attention_forward_plain(q, k, v, hd)
             torch.cuda.synchronize()
-            errs = [rel_err(g, w) for g, w in zip(got, want)]
-            worst = max(e[1] for e in errs)
-            if not worst <= tol:
-                raise AssertionError(
-                    f"attention_fwd {label} {dtype}: rel err {worst} > {tol}")
             itm = q.element_size()
-            nbytes = 4 * b * n * d * itm + 2 * b * n * h * 4
-            flops = 4 * b * h * n * n * hd
-            bnd, by = bound(nbytes, flops, dtype)
             qh, kh, vh = (sdpa_layout(x, hd) for x in (q, k, v))
-            row = dict(
-                shape=[b, n, d], heads=h, dtype=str(dtype).split(".")[-1],
-                max_abs_err=errs[0][0], rel_err=worst, tol=tol,
-                ms=timed_ms(lambda: attn._attention_forward_cuda(q, k, v, hd), 50),
-                plain_ms=timed_ms(lambda: attn.attention_forward_plain(q, k, v, hd), 20),
-                library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, scale=1.0), 50),
-                bound_ms=bnd, bound_by=by,
-            )
-            report.setdefault("attention_fwd", {})[
-                f"{label} B={b} N={n} D={d} H={h} {row['dtype']}"] = row
-            print(f"kernel attention_fwd {label} {row['dtype']}: rel err "
-                  f"{worst:.3g} (tol {tol}) ms {row['ms']:.4f} plain "
-                  f"{row['plain_ms']:.4f} sdpa {row['library_ms']:.4f} bound "
-                  f"{bnd:.4f} ({by})")
-
-    label, b, n, d, h = att_cases[0]
-    hd = d // h
-    for dtype in (bf16, f32):
-        tol = 2e-2 if dtype == bf16 else 1e-5
-        q, k, v = attention_inputs(b, n, d, hd, dtype)
-        o, m, denom = attn.attention_forward_plain(q, k, v, hd)
-        do = torch.randn((b, n, d), device=dev, generator=gen).to(dtype)
-        dd = (do.float() * o.float()).reshape(b, n, h, hd).sum(-1).contiguous()
-        args = (q, k, v, do, m, denom, dd, hd)
-        got = attn._attention_backward_cuda(*args)
-        want = attn.attention_backward_plain(*args)
-        torch.cuda.synchronize()
-        errs = [rel_err(g, w) for g, w in zip(got, want)]
-        worst = max(e[1] for e in errs)
-        if not worst <= tol:
-            raise AssertionError(
-                f"attention_bwd {label} {dtype}: rel err {worst} > {tol}")
-        itm = q.element_size()
-        nbytes = 7 * b * n * d * itm + 3 * b * n * h * 4
-        flops = 10 * b * h * n * n * hd
-        bnd, by = bound(nbytes, flops, dtype)
-        qh, kh, vh = (sdpa_layout(x, hd).requires_grad_(True) for x in (q, k, v))
-        oh = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
-        doh = sdpa_layout(do, hd)
-        row = dict(
-            shape=[b, n, d], heads=h, dtype=str(dtype).split(".")[-1],
-            max_abs_err=max(e[0] for e in errs), rel_err=worst, tol=tol,
-            ms=timed_ms(lambda: attn._attention_backward_cuda(*args), 50),
-            plain_ms=timed_ms(lambda: attn.attention_backward_plain(*args), 20),
-            library_ms=timed_ms(lambda: torch.autograd.grad(
-                oh, (qh, kh, vh), doh, retain_graph=True), 50),
-            bound_ms=bnd, bound_by=by,
-        )
-        report.setdefault("attention_bwd", {})[
-            f"{label} B={b} N={n} D={d} H={h} {row['dtype']}"] = row
-        print(f"kernel attention_bwd {label} {row['dtype']}: rel err "
-              f"{worst:.3g} (tol {tol}) ms {row['ms']:.4f} plain "
-              f"{row['plain_ms']:.4f} sdpa-bwd {row['library_ms']:.4f} bound "
-              f"{bnd:.4f} ({by})")
+            row = attention_row(
+                f"attention_fwd {case}", [rel_err(g, w) for g, w in zip(got, want)],
+                tol, dtype,
+                bound(4 * b * n * d * itm + 2 * b * n * h * 4, 4 * b * h * n * n * hd, dtype),
+                lambda: attn._attention_forward_cuda(q, k, v, hd),
+                lambda: attn.attention_forward_plain(q, k, v, hd),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
+            report.setdefault("attention_fwd", {})[case] = dict(
+                shape=[b, n, d], heads=h, dtype=dname, **row)
+            if label not in bwd_cases:
+                continue
+            o, m, denom = want
+            do = torch.randn((b, n, d), device=dev, generator=gen).to(dtype)
+            dd = (do.float() * o.float()).reshape(b, n, h, hd).sum(-1).contiguous()
+            args = (q, k, v, do, m, denom, dd, hd)
+            got = attn._attention_backward_cuda(*args)
+            want = attn.attention_backward_plain(*args)
+            torch.cuda.synchronize()
+            qg, kg, vg = (x.requires_grad_(True) for x in (qh, kh, vh))
+            og = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+            doh = sdpa_layout(do, hd)
+            row = attention_row(
+                f"attention_bwd {case}", [rel_err(g, w) for g, w in zip(got, want)],
+                tol, dtype,
+                bound(7 * b * n * d * itm + 3 * b * n * h * 4, 10 * b * h * n * n * hd, dtype),
+                lambda: attn._attention_backward_cuda(*args),
+                lambda: attn.attention_backward_plain(*args),
+                lambda: torch.autograd.grad(og, (qg, kg, vg), doh, retain_graph=True))
+            report.setdefault("attention_bwd", {})[case] = dict(
+                shape=[b, n, d], heads=h, dtype=dname, **row)
 
     # Attention at the edges of the kernel gate, which the main path does
     # not reach: N=1, N=512 with head_dim 128 (over 48 KB of shared memory),
-    # D=2048, odd N and head_dim 32; q, k, v are strided views of one
+    # D=2048, odd N, head_dim 16, 32 and 48, and N=16 (four heads per CTA
+    # in the bf16 forward); q, k, v are strided views of one
     # (B, N, 3D) tensor as in the model. At N=1 the softmax over one key is
     # constant, so dq and dk are 0 in exact arithmetic and both sides return
     # the rounding noise of dO.v - dd: there only o, m, denom and dv are
     # compared.
     for b, n, d, h in [(2, 512, 256, 2), (3, 1, 64, 1), (2, 17, 96, 3),
-                       (1, 33, 2048, 16)]:
+                       (1, 33, 2048, 16), (2, 100, 96, 2), (2, 16, 64, 4)]:
         hd = d // h
         for dtype in (bf16, f32):
             tol = 2e-2 if dtype == bf16 else 1e-5
@@ -575,12 +597,34 @@ def main() -> int:
     nbytes = 4 * q6.numel() * q6.element_size()
     bnd6, by6 = bound(nbytes, attn_probe.probe_flops(pb, ph, pn, phd), bf16)
     native = lambda x: x.transpose(1, 2).reshape(pb, pn, ph * phd).contiguous()
-    qn, kn, vn = native(q6 * phd**-0.5), native(k6), native(v6)
+    q6s = q6 * phd**-0.5
+    qn, kn, vn = native(q6s), native(k6), native(v6)
     k1_plain_ms = timed_ms(lambda: attn.attention_forward_plain(qn, kn, vn, phd), 2)
-    k1_bnd, _ = bound(nbytes + 2 * pb * pn * ph * 4,
-                      attn_probe.probe_flops(pb, ph, pn, phd), bf16)
-    sdpa_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-        q6 * phd**-0.5, k6, v6, scale=1.0), 10)
+    k1_bnd, k1_by = bound(nbytes + 2 * pb * pn * ph * 4,
+                          attn_probe.probe_flops(pb, ph, pn, phd), bf16)
+    sdpa6 = lambda: F.scaled_dot_product_attention(q6s, k6, v6, scale=1.0)
+    sdpa_ms = timed_ms(sdpa6, 10)
+    # K1 on the probe's q, k, v: checked and timed on the device here, its
+    # event-loop time is the probe's reading (phase 5b)
+    t1_case = f"Table-1 teacher B={pb} N={pn} D={ph * phd} H={ph} bfloat16"
+    got = attn._attention_forward_cuda(qn, kn, vn, phd)
+    want = attn.attention_forward_plain(qn, kn, vn, phd)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    worst = max(e[1] for e in errs)
+    if not worst <= 2e-2:
+        raise AssertionError(f"attention_fwd {t1_case}: rel err {worst} > 2e-2")
+    row = report["attention_fwd"][t1_case] = dict(
+        shape=[pb, pn, ph * phd], heads=ph, dtype="bfloat16",
+        max_abs_err=max(e[0] for e in errs), rel_err=worst, tol=2e-2,
+        plain_ms=k1_plain_ms, library_ms=sdpa_ms, bound_ms=k1_bnd, bound_by=k1_by,
+        device_ms=kernel_ms(lambda: attn._attention_forward_cuda(qn, kn, vn, phd), dev),
+        library_device_ms=kernel_ms(sdpa6, dev))
+    del got, want
+    print(f"kernel attention_fwd {t1_case}: rel err {worst:.3g} (tol 2e-2) device "
+          f"{row['device_ms']:.4f} sdpa {sdpa_ms:.4f} (device "
+          f"{row['library_device_ms']:.4f}) bound {k1_bnd:.4f} ({k1_by}); "
+          "event-loop ms in phase 5b")
     for variant in attn_probe.VARIANTS:
         got = attn_probe.probe_attention(q6, k6, v6, variant=variant)
         want = attn_probe.probe_attention_plain(q6, k6, v6, variant=variant)
@@ -605,7 +649,7 @@ def main() -> int:
               f"1 bf16 ulp) plain {row['plain_ms']:.4f} bound {bnd6:.4f} ({by6}); "
               f"K1 fwd plain {k1_plain_ms:.4f}, bound {k1_bnd:.4f}; sdpa "
               f"{sdpa_ms:.4f} at ({pb}, {pn}, {ph * phd}) H={ph}")
-    del cov, q6, k6, v6, qn, kn, vn
+    del cov, q6, k6, v6, q6s, qn, kn, vn
 
     # ---- 5. the main path: bench.py's augmented step, then augment=False ----
     def main_path(augment, steps):
@@ -709,6 +753,7 @@ def main() -> int:
     for variant, ms in probe["variants"].items():
         report["attn_probe"][f"{variant} {(pb, ph, pn, phd)}"].update(
             ms=ms, k1_ms=probe["attention_fwd"])
+    report["attention_fwd"][t1_case]["ms"] = probe["attention_fwd"]
 
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both
@@ -787,14 +832,8 @@ def main() -> int:
         float(met["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: user annotations (the optimizer's step range)
-    # also carry device time and would count it twice
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3
+    dev_events = device_events(prof)
+    busy_ms = sum(device_us(e) for e in dev_events) / 1e3
     print(f"profile: step {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev_events)} "
           "device kernels")
@@ -802,8 +841,14 @@ def main() -> int:
         if e.key.startswith("basd:") and \
                 e.device_type == torch.autograd.DeviceType.CPU:
             print(f"  stage {e.key[5:]:<16s} host {e.cpu_time_total / 1e3:9.3f} ms")
-    for e in sorted(dev_events, key=dev_us, reverse=True)[:12]:
-        print(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for e in sorted(dev_events, key=device_us, reverse=True)[:12]:
+        print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    # the port's own kernels (csrc/*.cu, each in an anonymous namespace)
+    own = [e for e in dev_events if e.key.startswith("void (anonymous namespace)::")]
+    print(f"profile: the port's kernels {sum(device_us(e) for e in own) / 1e3:.3f} "
+          f"ms of device time in the step")
+    for e in sorted(own, key=device_us, reverse=True):
+        print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
     # ---- result lines ----
     meta = {
@@ -830,7 +875,8 @@ def main() -> int:
     # K1-K4, the spectral tuner for K5, the attention probe for K6
     own_path = {"jacobi_eigvals": "tune_spectral",
                 "attn_probe": "probe_attn_internals"}
-    measured = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+    measured = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms", "bound_by",
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
                 "orth_err", "eig3_err", "k1_ms", "k1_plain_ms", "k1_bound_ms",
                 "sdpa_ms", "differing",

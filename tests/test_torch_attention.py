@@ -1,7 +1,10 @@
 """Attention K1/K2 plain versions (`basd_tpu_torch/ops/attention.py`) held
 against the JAX package's Pallas kernels in interpret mode and its
-`xla_attention_ref`, at the main path's head layouts (student D=192 H=3,
-teacher D=768 H=12, head_dim 64) on a small batch."""
+`xla_attention_ref` on a small batch: at the main path's head layouts
+(student D=192 H=3, teacher D=768 H=12, head_dim 64), the Table-1 ones
+(N=197 D=384 H=6, N=257 D=768 H=12), head_dim 32 and 128, and ragged N
+(1, 17, 129): the shapes whose tiling (16-row warp tiles, 64-row chunks,
+padded keys) the CUDA kernels have to get right."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,12 @@ from test_torch_helpers import assert_close, t32
 
 torch.set_num_threads(1)
 
-SHAPES = [(2, 65, 192, 3), (2, 5, 768, 12)]
+SHAPES = [
+    (2, 65, 192, 3), (2, 5, 768, 12),  # Table-3 student and teacher
+    (2, 197, 384, 6), (2, 257, 768, 12),  # Table-1 student and teacher
+    (2, 33, 96, 3), (2, 40, 256, 2),  # head_dim 32 and 128
+    (2, 1, 192, 3), (2, 17, 192, 3), (2, 129, 192, 3),  # ragged N
+]
 
 
 def _inputs(b, n, d, h, seed=0):
@@ -51,7 +59,9 @@ def test_forward_matches_pallas_interpret_and_stats(b, n, d, h):
 def test_gradients_match_jax_vjp(b, n, d, h):
     """Gradients to all of q, k, v through the port's autograd.Function
     (plain K2 on the CPU) against jax.vjp of the interpret-mode kernel:
-    1e-5 of scale in fp32."""
+    1e-5 of scale in fp32. At N=1 the softmax over one key is constant, so
+    dq and dk are 0 in exact arithmetic and both sides return the rounding
+    noise of dO.v - dd: there both stay below 1e-5 of dv's scale."""
     hd = d // h
     q, k, v = _inputs(b, n, d, h, seed=1)
     do = np.random.default_rng(2).standard_normal((b, n, d)).astype(np.float32)
@@ -63,8 +73,13 @@ def test_gradients_match_jax_vjp(b, n, d, h):
     tq, tk, tv = (t32(x).requires_grad_(True) for x in (q, k, v))
     out = tattn.fused_attention(tq, tk, tv, hd)
     out.backward(t32(do))
+    scale = float(np.abs(np.asarray(jgrads[2])).max())
     for got, want, name in zip((tq.grad, tk.grad, tv.grad), jgrads, "qkv"):
-        assert_close(got, want, 1e-5, f"d{name}")
+        if n == 1 and name != "v":
+            assert float(got.abs().max()) <= 1e-5 * scale, f"d{name}"
+            assert float(np.abs(np.asarray(want)).max()) <= 1e-5 * scale, f"d{name}"
+        else:
+            assert_close(got, want, 1e-5, f"d{name}")
 
 
 def test_bf16_rounds_e_before_denom():

@@ -120,6 +120,21 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     h = torch.zeros((2, 65, 192), dtype=torch.float16)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         tattn._attention_forward_cuda(h, h, h, 64)
+    # bf16 loads 16-byte pieces: a view 2 bytes into its storage, or one
+    # whose row stride is not a multiple of 8 elements, raises
+    qkv = torch.zeros((2, 65, 3 * 192 + 8), dtype=torch.bfloat16)
+    q, k, v = qkv[..., 1:193], qkv[..., 193:385], qkv[..., 385:577]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn._attention_forward_cuda(q, k, v, 64)
+    rows = torch.zeros((2, 65, 196), dtype=torch.bfloat16)[..., :192]
+    s = torch.zeros((2, 65, 3))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tattn._attention_backward_cuda(rows, rows, rows, rows, s, s, s, 64)
+    # the model's views of one (B, N, 3D) tensor are aligned: fp32 takes
+    # any view (its CUDA-core kernels load element by element)
+    aligned = qkv[..., 8:200]
+    tattn._check_cuda((aligned,) * 3, "qkv", 64)
+    tattn._check_cuda((q.float(),) * 3, "qkv", 64)
     with pytest.raises(ValueError, match="even"):
         jacobi_kernel._jacobi_raw_cuda(torch.zeros((4, 33, 33)), 6)
     with pytest.raises(ValueError, match="fp32"):
