@@ -1,7 +1,10 @@
-"""Device timing of the tools: CUDA events around repeated calls, and the
-kernels' own device time under torch.profiler."""
+"""Device timing of the tools: CUDA events around repeated calls, the
+calls' device time with the host kept ahead of the card, and the device
+kernels of a torch.profiler run."""
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -40,25 +43,39 @@ def device_us(event) -> float:
 
 
 def kernel_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2):
-    """Device time per call of `fn()`: the time of the kernels it launches,
-    summed by torch.profiler over `reps` calls, over `reps`. Unlike
-    `device_ms` it leaves out the gaps in which the card waits for the host
-    to enqueue the next launch. None on the CPU."""
+    """Device time per call of `fn()` with the card never waiting for the
+    host. A spin kernel holds the card while the host enqueues `reps`
+    calls; CUDA events time the calls from the spin's end, so they run back
+    to back. Unlike `device_ms` this leaves out the gaps in which the card
+    waits for the host to enqueue the next launch. The start event must
+    still be pending when the host has enqueued the last call; if it is
+    not, the spin was too short and the reading is taken again with a
+    longer one. None on the CPU."""
     if device.type != "cuda":
         return None
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the spin's length in ms (at the card's clock of about 2 GHz): twice
+    # the host's time for the last warm-up call, per call
+    hold_ms = min(2.0 * reps * host_ms + 1.0, 100.0)
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * 2e6))
+        start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        ahead = not start.query()
         torch.cuda.synchronize(device)
-    events = device_events(prof)
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device kernels")
-    return sum(device_us(e) for e in events) / 1e3 / reps
+        if ahead:
+            return start.elapsed_time(end) / reps
+        hold_ms *= 4
+    raise RuntimeError(f"the host did not enqueue {reps} calls within a "
+                       f"{hold_ms / 4:.1f} ms spin")
 
 
 def fmt_ms(ms) -> str:

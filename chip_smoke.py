@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      the plain version and a PyTorch library yardstick where one exists:
      K1-K4 at the train step's shapes, K1 and K2 also at the Table-1
      student's (256, 197, 384) H=6 and at the gate's edges, bf16 K1/K2 and
-     SDPA also by device time alone (torch.profiler); K5 on the spectral
+     SDPA also by device time alone (the host kept ahead of the card by a
+     spin kernel); K5 on the spectral
      tuner's own (12, 192, 192) token covariances and at an odd n (191);
      K3 at (48, 192, 192), its device-memory V^T route, on the sweeps
      probe's two spectrum families; K6 in all six variants at the
@@ -200,7 +201,8 @@ def main() -> int:
     # each beside SDPA (forward or its autograd backward). bf16 runs on the
     # tensor cores; its times are read twice: `ms` by CUDA events around a
     # loop of calls (which a kernel of a few us leaves at the host's
-    # enqueue rate) and `device_ms` by torch.profiler (the kernels alone).
+    # enqueue rate) and `device_ms` by CUDA events around calls that the
+    # host enqueued while a spin kernel held the card (`kernel_ms`).
     att_cases = [("student", 128, 65, 192, 3), ("teacher", 128, 5, 768, 12),
                  ("Table-1 student", 256, 197, 384, 6)]
     bwd_cases = ("student", "Table-1 student")
@@ -843,8 +845,11 @@ def main() -> int:
             print(f"  stage {e.key[5:]:<16s} host {e.cpu_time_total / 1e3:9.3f} ms")
     for e in sorted(dev_events, key=device_us, reverse=True)[:12]:
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    # the port's own kernels (csrc/*.cu, each in an anonymous namespace)
-    own = [e for e in dev_events if e.key.startswith("void (anonymous namespace)::")]
+    # the port's own kernels (csrc/*.cu); PyTorch's softmax and arange
+    # kernels also sit in anonymous namespaces
+    own_kernel = re.compile(
+        r"void \(anonymous namespace\)::(attn_\w+|jacobi_kernel|warp_kernel)[<(]")
+    own = [e for e in dev_events if own_kernel.match(e.key)]
     print(f"profile: the port's kernels {sum(device_us(e) for e in own) / 1e3:.3f} "
           f"ms of device time in the step")
     for e in sorted(own, key=device_us, reverse=True):
