@@ -7,31 +7,62 @@
 // (step math in basd_tpu/spectral/jacobi.py) and runs the same sequence of
 // rotations: positions are paired (i, i + n/2); each step computes the n/2
 // rotations (c, s) with `pair_rotations`' formula (including its 1e-30
-// guard), applies A <- J^T A J, rotates V^T <- J^T V^T (K3 only), and then
-// applies the half-shift round-robin permutation
+// guard), applies A <- J^T A J (rows first, then columns), rotates
+// V^T <- J^T V^T (K3 only), and then applies the half-shift round-robin
+// permutation
 //     new = [x_0, x_h, x_1..x_{h-2}, x_{h+1}..x_{n-1}, x_{h-1}]
-// to the positions. Here the permutation is an index map (logical
-// position -> row of the shared-memory matrix) instead of a data move; the
-// rotations and their order are unchanged. After (n - 1) * sweeps steps the
-// diagonal holds the eigenvalues and V^T the eigenvectors, both written in
-// logical order; sorting and stripping an odd-n pad stay in the wrapper.
+// to the positions. After (n - 1) * sweeps steps the diagonal holds the
+// eigenvalues and V^T the eigenvectors, both written in logical order;
+// sorting and stripping an odd-n pad stay in the wrapper.
 //
 // What bounds it here: the work is tiny (about 9 n^2 flops per step with
 // V, 6 n^2 without) and the bytes are one read of A and one write of w and
 // V^T, but the (n - 1) * sweeps steps form a chain of dependent phases
 // (282 steps at n = 48, six sweeps; 1,719 at n = 192, nine sweeps), each
-// ending in a block-wide barrier. So it is latency-bound: one CTA per
-// matrix so every matrix of the batch runs at once on its own SM, A
-// resident in shared memory for the whole run, and two barriers per step.
-// Each thread updates whole 2x2 blocks {p, q} x {r, s} of A in place, so
-// the row and column rotations need no second buffer and no extra barrier.
-// Three routes by what fits in a CTA's 227 KB of shared memory:
-//   * kVtShared (K3, n <= 168): A and V^T both in shared memory (2 n^2);
-//   * kVtGlobal (K3, 168 < n <= 238): A in shared memory, V^T in a
+// ending in a block-wide barrier. So it is bound by the latency of one
+// step, not by bytes or operations: one CTA per matrix, so every matrix
+// of the batch runs at once on its own SM, A resident in shared memory
+// for the whole run, and as little as possible on each step's critical
+// path. Four routes, by n and by what fits in a CTA's 227 KB of shared
+// memory:
+//   * kPingPong (K3, n <= 96, the selector's gate 16 <= n <= 96 and the
+//     main path's n = 48), one instantiation per even n: A and V^T in
+//     logical order, each in two ping-pong buffers (4 n ld floats, rows
+//     ld >= n apart so that a warp's blocks fall in 32 banks: 42 KB at
+//     n = 48, 168 KB at n = 96). A block thread reads the 2x2 block
+//     (ri, ci) of A, rows {ri, ri + h} x columns {ci, ci + h}, and V^T's
+//     rows {ri, ri + h} at columns {ci, ci + h} from the current buffers,
+//     and writes the rotated values to the other buffers at the next
+//     step's positions dst(.), the inverse of the half-shift
+//     (basd_tpu_torch/spectral/jacobi.py:halfshift_dst, in closed form
+//     below; `pingpong_step` there is this step in torch). So there is no
+//     index map and no permutation phase, and every address is a register
+//     fixed before the loop plus an immediate. The step's critical path
+//     is the rotation's chain of five dependent IEEE divisions and square
+//     roots, so it runs beside the blocks' work instead of before it: the
+//     rotation warps' lane k computes pair k's rotation a step ahead, from
+//     the entries that the blocks rotate into its next a_kk, a_{k+h,k+h}
+//     and a_{k,k+h}, rotated by the lane itself
+//     (`jacobi.py:pingpong_pair_inputs`), and the block threads read the
+//     step's rotations from shared memory. One barrier per step, and up to
+//     n = 60 a one-way named barrier that lets the rotation lanes' loads
+//     go first. Threads follow `jacobi.py:pingpong_threads`: one rotation
+//     lane per pair in whole warps, and the fewest blocks per block thread
+//     that the rest of 1024 threads allow (1 to n = 62, 2 to n = 86, 3 to
+//     n = 96). A is rotated in full, as in the plain version (its fp32
+//     rounding is not symmetric), and every product, sum and difference is
+//     rounded on its own, as torch's elementwise ops round them (no FMA
+//     contraction), so the route returns the plain version's bits;
+//   * kVtShared (K3, 96 < n <= 168): A and V^T both in shared memory
+//     (2 n^2), each thread updating whole 2x2 blocks of A in place, the
+//     permutation an index map (logical position -> row), two barriers a
+//     step;
+//   * kVtGlobal (K3, 168 < n <= 238): as kVtShared with V^T in a
 //     device-memory scratch of n^2 per matrix that the wrapper allocates;
 //     its rows are rotated in place through L2 (7 MB at (48, 192, 192)),
 //     and the final logical-order copy goes to vt_out;
-//   * kNoVt (K5, n <= 238): A alone, no eigenvector accumulator.
+//   * kNoVt (K5, n <= 238): as kVtShared with A alone, no eigenvector
+//     accumulator.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast math: IEEE division and sqrt).
@@ -41,6 +72,310 @@
 namespace {
 
 enum Route { kVtShared = 0, kVtGlobal = 1, kNoVt = 2 };
+
+constexpr int kMaxNPingPong = 96;
+constexpr int kMaxNSharedVt = 168;
+constexpr int kPingPongMaxThreads = 1024;
+constexpr int kMaxNLoadsFirst = 60;
+
+// `pair_rotations`' (c, s) for one pair (p, q) from a_pp, a_qq, a_pq
+__device__ __forceinline__ void pair_rotation(float app, float aqq, float apq,
+                                              float& c, float& s) {
+  const bool safe = fabsf(apq) > 1e-30f;
+  const float tau = (aqq - app) / (safe ? 2.0f * apq : 1.0f);
+  const float sgn = tau >= 0.0f ? 1.0f : -1.0f;
+  const float t = sgn / (fabsf(tau) + sqrtf(1.0f + tau * tau));
+  const float cc = 1.0f / sqrtf(1.0f + t * t);
+  c = safe ? cc : 1.0f;
+  s = safe ? t * cc : 0.0f;
+}
+
+// The kPingPong route rounds every product, sum and difference on its own,
+// as torch's elementwise ops in the plain version do (no FMA contraction),
+// so it returns the plain version's bits.
+__device__ __forceinline__ void pair_rotation_rn(float app, float aqq, float apq,
+                                                 float& c, float& s) {
+  const bool safe = fabsf(apq) > 1e-30f;
+  const float tau = __fdiv_rn(__fsub_rn(aqq, app), safe ? __fmul_rn(2.0f, apq) : 1.0f);
+  const float sgn = tau >= 0.0f ? 1.0f : -1.0f;
+  const float t = __fdiv_rn(
+      sgn, __fadd_rn(fabsf(tau), __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(tau, tau)))));
+  const float cc = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(t, t))));
+  c = safe ? cc : 1.0f;
+  s = safe ? __fmul_rn(t, cc) : 0.0f;
+}
+
+// c x - s y and s x + c y, rounded as the plain version rounds them
+__device__ __forceinline__ float rot_lo(float c, float s, float x, float y) {
+  return __fsub_rn(__fmul_rn(c, x), __fmul_rn(s, y));
+}
+__device__ __forceinline__ float rot_hi(float c, float s, float x, float y) {
+  return __fadd_rn(__fmul_rn(s, x), __fmul_rn(c, y));
+}
+
+// the position that the half-shift moves position p to
+// (basd_tpu_torch/spectral/jacobi.py:halfshift_dst)
+__device__ __forceinline__ int halfshift_dst(int p, int n) {
+  const int h = n / 2;
+  if (p == 0) return 0;
+  if (p == h) return 1;
+  if (p == h - 1) return n - 1;
+  return p < h - 1 ? p + 1 : p - 1;
+}
+
+// the position that the half-shift moves to position k, the inverse of
+// halfshift_dst (basd_tpu_torch/spectral/jacobi.py:halfshift_src)
+__device__ __forceinline__ int halfshift_src(int k, int n) {
+  const int h = n / 2;
+  if (k == 0) return 0;
+  if (k == 1) return h;
+  if (k == n - 1) return h - 1;
+  return k < h ? k - 1 : k + 1;
+}
+
+// The kPingPong route at one even n (see the note at the top); every
+// size is a compile-time constant, so each address is a register fixed
+// before the loop plus an immediate.
+template <int kN>
+struct PingPong {
+  static constexpr int kH = kN / 2;
+  // the row stride: the least ld >= n with ld = h (mod 32). Entry (ri, ci)
+  // of the h x h grid then sits in bank (ri * h + ci) mod 32, so the 32
+  // consecutive blocks of a warp, which span two or three rows of the
+  // grid, read and write 32 different banks (at ld = n = 48 two rows of
+  // one warp collide)
+  static constexpr int kLd = kN + (32 - kH % 32) % 32;
+  static constexpr int kSz = kN * kLd;  // floats per matrix buffer
+  // threads: the block threads, then the rotation warps, whose lane k
+  // computes pair k's rotation (`jacobi.py:pingpong_threads`)
+  static constexpr int kRotWarps = (kH + 31) / 32;
+  static constexpr int kBlocks = kH * kH;
+  static constexpr int kMaxBlockThreads = kPingPongMaxThreads - 32 * kRotWarps;
+  static constexpr int kPer = (kBlocks + kMaxBlockThreads - 1) / kMaxBlockThreads;
+  static constexpr int kBlockThreads = ((kBlocks + kPer - 1) / kPer + 31) / 32 * 32;
+  static constexpr int kThreads = kBlockThreads + 32 * kRotWarps;
+  // Where the rotation lanes' chain sets the step's length (to n = 60),
+  // the block warps wait on a one-way named barrier until the rotation
+  // warps have issued their loads, so that those are not queued behind
+  // the blocks' loads; above, the blocks' own work sets it and the wait
+  // would only delay them
+  static constexpr bool kLoadsFirst = kN <= kMaxNLoadsFirst;
+  // A0, VT0, A1, VT1, then the rotations (c[h], s[h]) CS0, CS1
+  static constexpr size_t kSmemBytes = sizeof(float) * (4 * kSz + 4 * kH);
+};
+
+// A block thread's part of one step, from the buffers of parity kPar to the
+// others: its 2x2 blocks rotated with this step's rotations, which the
+// rotation warps wrote in the step before, and scattered to the next step's
+// positions.
+template <int kN, int kPar>
+__device__ __forceinline__ void block_step(
+    float* smem, const bool (&live)[PingPong<kN>::kPer],
+    const int (&ri)[PingPong<kN>::kPer], const int (&ci)[PingPong<kN>::kPer],
+    const int (&src)[PingPong<kN>::kPer], const int (&da)[PingPong<kN>::kPer][4],
+    const int (&dv)[PingPong<kN>::kPer][2]) {
+  using P = PingPong<kN>;
+  constexpr int h = P::kH, hn = P::kH * P::kLd;
+  const float* A = smem + kPar * 2 * P::kSz;
+  const float* VT = A + P::kSz;
+  const float* cs = smem + 4 * P::kSz + kPar * 2 * h;
+  float* An = smem + (1 - kPar) * 2 * P::kSz;
+  float* VTn = An + P::kSz;
+  if constexpr (P::kLoadsFirst) asm volatile("bar.sync 1, %0;" ::"n"(P::kThreads) : "memory");
+#pragma unroll
+  for (int j = 0; j < P::kPer; ++j) {
+    if (!live[j]) continue;
+    const int o = src[j];
+    const float a[4] = {A[o], A[o + h], A[o + hn], A[o + hn + h]};
+    const float v[4] = {VT[o], VT[o + h], VT[o + hn], VT[o + hn + h]};
+    // the rotations of the row pair ri and the column pair ci
+    const float cr = cs[ri[j]], sr = cs[h + ri[j]], cc = cs[ci[j]], sc = cs[h + ci[j]];
+    // rows first (apply_rows), then columns (apply_cols)
+    const float t0 = rot_lo(cr, sr, a[0], a[2]), t1 = rot_lo(cr, sr, a[1], a[3]);
+    const float b0 = rot_hi(cr, sr, a[0], a[2]), b1 = rot_hi(cr, sr, a[1], a[3]);
+    An[da[j][0]] = rot_lo(cc, sc, t0, t1);
+    An[da[j][1]] = rot_hi(cc, sc, t0, t1);
+    An[da[j][2]] = rot_lo(cc, sc, b0, b1);
+    An[da[j][3]] = rot_hi(cc, sc, b0, b1);
+    // V^T <- J^T V^T: rows ri, ri + h move, columns ci, ci + h stay
+    VTn[dv[j][0]] = rot_lo(cr, sr, v[0], v[2]);
+    VTn[dv[j][1]] = rot_hi(cr, sr, v[0], v[2]);
+    VTn[dv[j][0] + h] = rot_lo(cr, sr, v[1], v[3]);
+    VTn[dv[j][1] + h] = rot_hi(cr, sr, v[1], v[3]);
+  }
+}
+
+// A rotation lane's part of one step: pair k's rotation for the next step,
+// from the three entries that the blocks rotate into its a_kk, a_{k+h,k+h}
+// and a_{k,k+h}, rotated here from this step's A and rotations as the
+// blocks rotate them (`jacobi.py:pingpong_pair_inputs`). An entry in a
+// block's bottom row or right column is taken as the top or left one with
+// its operands swapped and s negated, which gives the same bits
+// (s x + c y = c y - (-s) x in IEEE arithmetic). ea[e] holds the four
+// operands' offsets in that order for a_kk, a_{k+h,k+h} and a_{k,k+h};
+// their rows take the rotation of pair r1, r2, r1 and their columns that
+// of r1, r2, r2, with s times g1 or g2 (-1 for a bottom row or right
+// column).
+template <int kN, int kPar>
+__device__ __forceinline__ void rotation_step(float* smem, int k, int r1, int r2,
+                                              float g1, float g2,
+                                              const int (&ea)[3][4]) {
+  using P = PingPong<kN>;
+  constexpr int h = P::kH;
+  const float* A = smem + kPar * 2 * P::kSz;
+  const float* cs = smem + 4 * P::kSz + kPar * 2 * h;
+  float* csn = smem + 4 * P::kSz + (1 - kPar) * 2 * h;
+  float in[3][4];
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in[e][q] = A[ea[e][q]];
+  const float c1 = cs[r1], c2 = cs[r2];
+  float s1 = cs[h + r1], s2 = cs[h + r2];
+  if constexpr (P::kLoadsFirst) asm volatile("bar.arrive 1, %0;" ::"n"(P::kThreads) : "memory");
+  s1 = __fmul_rn(g1, s1);
+  s2 = __fmul_rn(g2, s2);
+  float x[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float cr = e == 1 ? c2 : c1, sr = e == 1 ? s2 : s1;
+    const float cc = e == 0 ? c1 : c2, sc = e == 0 ? s1 : s2;
+    const float tl = rot_lo(cr, sr, in[e][0], in[e][1]);
+    const float tr = rot_lo(cr, sr, in[e][2], in[e][3]);
+    x[e] = rot_lo(cc, sc, tl, tr);
+  }
+  float c, s;
+  pair_rotation_rn(x[0], x[1], x[2], c, s);
+  if (k < h) {
+    csn[k] = c;
+    csn[h + k] = s;
+  }
+}
+
+// Shared memory: A0, VT0, A1, VT1, kSz floats each, logical order, rows
+// kLd apart, then the rotations CS0, CS1. Block thread t < kBlockThreads
+// takes the 2x2 blocks t + j * kBlockThreads, j < kPer, of the h x h grid;
+// the rotation warps' lanes k < h compute pair k's rotation a step ahead,
+// so the blocks' work and the rotations' chain of divisions and square
+// roots run side by side between two barriers. The loop runs two steps per
+// trip, 0 -> 1 and 1 -> 0, so the buffers' offsets are constants.
+template <int kN>
+__global__ void __launch_bounds__(PingPong<kN>::kThreads)
+jacobi_pingpong_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
+                       float* __restrict__ vt_out, int steps) {
+  using P = PingPong<kN>;
+  constexpr int n = kN, h = P::kH, ld = P::kLd, sz = P::kSz;
+  extern __shared__ float smem[];
+  const long long base = (long long)blockIdx.x * n * n;
+  const int tid = threadIdx.x;
+  const bool rot = tid >= P::kBlockThreads;  // whole warps
+
+  for (int i = tid; i < n * n; i += P::kThreads) {
+    const int r = i / n, c = i - r * n;
+    smem[r * ld + c] = a_in[base + i];
+    smem[sz + r * ld + c] = r == c ? 1.f : 0.f;
+  }
+  // a block thread's blocks: its row and column pair, its top-left entry,
+  // where its four rotated entries of A go (rows dst(ri), dst(ri + h),
+  // columns dst(ci), dst(ci + h)) and where its V^T entries go (rows
+  // dst(ri), dst(ri + h); columns stay)
+  bool live[P::kPer];
+  int ri[P::kPer], ci[P::kPer], src[P::kPer], da[P::kPer][4], dv[P::kPer][2];
+#pragma unroll
+  for (int j = 0; j < P::kPer; ++j) {
+    const int idx = tid + j * P::kBlockThreads;
+    live[j] = !rot && idx < h * h;
+    ri[j] = live[j] ? idx / h : 0;
+    ci[j] = live[j] ? idx - ri[j] * h : 0;
+    src[j] = ri[j] * ld + ci[j];
+    const int rows[2] = {halfshift_dst(ri[j], n), halfshift_dst(ri[j] + h, n)};
+    const int cols[2] = {halfshift_dst(ci[j], n), halfshift_dst(ci[j] + h, n)};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) da[j][q] = rows[q / 2] * ld + cols[q % 2];
+    dv[j][0] = rows[0] * ld + ci[j];
+    dv[j][1] = rows[1] * ld + ci[j];
+  }
+  // a rotation lane's pair k (clamped into the grid) and the entries that
+  // land on its a_kk, a_{k+h,k+h}, a_{k,k+h}: positions p1 = src(k) and
+  // p2 = src(k + h), in the pairs r1, r2 of the halves g1, g2
+  const int k = rot ? tid - P::kBlockThreads : 0;
+  const int kk = k < h ? k : 0;
+  const int p1 = halfshift_src(kk, n), p2 = halfshift_src(kk + h, n);
+  const int r1 = p1 < h ? p1 : p1 - h, r2 = p2 < h ? p2 : p2 - h;
+  const float g1 = p1 < h ? 1.f : -1.f, g2 = p2 < h ? 1.f : -1.f;
+  int ea[3][4];
+  {
+    // entry e: rows {p, the other row of its pair} x columns {q, the other}
+    const int pr[3] = {p1, p2, p1}, pc[3] = {p1, p2, p2};
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const int u = pr[e], w = u < h ? u + h : u - h;
+      const int l = pc[e], r = l < h ? l + h : l - h;
+      ea[e][0] = u * ld + l;
+      ea[e][1] = w * ld + l;
+      ea[e][2] = u * ld + r;
+      ea[e][3] = w * ld + r;
+    }
+  }
+  if (rot) {  // the first step's rotations, from the input
+    float c, s;
+    pair_rotation_rn(a_in[base + kk * (n + 1)], a_in[base + (kk + h) * (n + 1)],
+                     a_in[base + kk * n + kk + h], c, s);
+    if (k < h) {
+      smem[4 * sz + k] = c;
+      smem[4 * sz + h + k] = s;
+    }
+  }
+  __syncthreads();
+
+  for (int step = 0; step + 1 < steps; step += 2) {
+    if (rot) rotation_step<kN, 0>(smem, k, r1, r2, g1, g2, ea);
+    else block_step<kN, 0>(smem, live, ri, ci, src, da, dv);
+    __syncthreads();
+    if (rot) rotation_step<kN, 1>(smem, k, r1, r2, g1, g2, ea);
+    else block_step<kN, 1>(smem, live, ri, ci, src, da, dv);
+    __syncthreads();
+  }
+  if (steps % 2) {
+    if (rot) rotation_step<kN, 0>(smem, k, r1, r2, g1, g2, ea);
+    else block_step<kN, 0>(smem, live, ri, ci, src, da, dv);
+    __syncthreads();
+  }
+
+  const float* A = smem + (steps % 2) * 2 * sz;
+  const float* VT = A + sz;
+  for (int i = tid; i < n; i += P::kThreads)
+    w_out[(long long)blockIdx.x * n + i] = A[i * (ld + 1)];
+  for (int i = tid; i < n * n; i += P::kThreads) {
+    const int r = i / n, c = i - r * n;
+    vt_out[base + i] = VT[r * ld + c];
+  }
+}
+
+template <int kN>
+int launch_pingpong_at(const void* a, void* w, void* vt, int batch, int steps,
+                       void* stream) {
+  using P = PingPong<kN>;
+  if (P::kSmemBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_pingpong_kernel<kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  jacobi_pingpong_kernel<kN><<<batch, P::kThreads, P::kSmemBytes, (cudaStream_t)stream>>>(
+      (const float*)a, (float*)w, (float*)vt, steps);
+  return (int)cudaGetLastError();
+}
+
+// the instantiation for n, one per even n from kN to kMaxNPingPong
+template <int kN>
+int launch_pingpong(const void* a, void* w, void* vt, int batch, int n,
+                    int steps, void* stream) {
+  if (n == kN) return launch_pingpong_at<kN>(a, w, vt, batch, steps, stream);
+  if constexpr (kN < kMaxNPingPong)
+    return launch_pingpong<kN + 2>(a, w, vt, batch, n, steps, stream);
+  return (int)cudaErrorInvalidValue;
+}
 
 // the shared-memory route keeps K3's original 512 threads; the A-only
 // routes run n = 192 (18 2x2 blocks per thread at 512) with 1024
@@ -90,17 +425,7 @@ jacobi_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
     // (c, s) for the logical pairs (i, i + h): pair_rotations
     for (int i = tid; i < h; i += kThreads) {
       const int p = P[i], q = P[i + h];
-      const float app = A[p * n + p];
-      const float aqq = A[q * n + q];
-      const float apq = A[p * n + q];
-      const bool safe = fabsf(apq) > 1e-30f;
-      const float tau = (aqq - app) / (safe ? 2.0f * apq : 1.0f);
-      const float sgn = tau >= 0.0f ? 1.0f : -1.0f;
-      const float t = sgn / (fabsf(tau) + sqrtf(1.0f + tau * tau));
-      const float c = 1.0f / sqrtf(1.0f + t * t);
-      const float s = t * c;
-      cs[i] = safe ? c : 1.0f;
-      sn[i] = safe ? s : 0.0f;
+      pair_rotation(A[p * n + p], A[q * n + q], A[p * n + q], cs[i], sn[i]);
     }
     __syncthreads();
 
@@ -177,12 +502,20 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 
 }  // namespace
 
-// K3: eigenvalues and V^T. `scratch` is null when A and V^T fit in shared
-// memory together (n <= 168); above that it holds batch x n x n floats.
+// K3: eigenvalues and V^T, the route picked by n (as
+// basd_tpu_torch/spectral/jacobi_kernel.py:eigh_route): kPingPong to
+// n = 96, kVtShared to n = 168, kVtGlobal above. `scratch` holds batch x
+// n x n floats for kVtGlobal and is null otherwise.
 extern "C" int basd_jacobi_eigh(const void* a, void* w, void* vt,
                                 void* scratch, int batch, int n, int steps,
                                 void* stream) {
-  if (scratch == nullptr)
+  if ((n > kMaxNSharedVt) != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n <= kMaxNPingPong) {
+    if (n < 4 || n % 2 != 0 || batch <= 0) return (int)cudaErrorInvalidValue;
+    return launch_pingpong<4>(a, w, vt, batch, n, steps, stream);
+  }
+  if (n <= kMaxNSharedVt)
     return launch<kVtShared>(a, w, vt, nullptr, batch, n, steps, stream);
   return launch<kVtGlobal>(a, w, vt, scratch, batch, n, steps, stream);
 }

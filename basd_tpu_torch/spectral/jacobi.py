@@ -42,7 +42,13 @@ def pair_rotations(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     app = d[:, :h]
     aqq = d[:, h:]
     apq = torch.diagonal(a[:, :h, h:], dim1=-2, dim2=-1)  # a[i, i + h]
+    return rotations(app, aqq, apq)
 
+
+def rotations(
+    app: torch.Tensor, aqq: torch.Tensor, apq: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`pair_rotations`' (c, s) from each pair's a_pp, a_qq and a_pq."""
     safe = apq.abs() > 1e-30
     tau = (aqq - app) / torch.where(safe, 2.0 * apq, torch.ones_like(apq))
     sgn = torch.where(tau >= 0.0, 1.0, -1.0)
@@ -78,6 +84,131 @@ def jacobi_step(
     a = rotate_positions(rotate_positions(a, 1), 2)
     v = rotate_positions(v, 2)
     return a, v
+
+
+# ---------------------------------------------------------------------------
+# The layout of the Jacobi eigh kernel's ping-pong route (n <= 96): A and
+# V^T stay in logical order and each step writes the rotated values
+# straight to the next step's positions in a second buffer.
+# ---------------------------------------------------------------------------
+
+PINGPONG_MAX_THREADS = 1024
+
+
+def halfshift_dst(n: int) -> list[int]:
+    """dst[p]: the position that `rotate_positions` moves position p to,
+    the inverse of the half-shift (0 -> 0, h -> 1, p -> p + 1 for
+    1 <= p <= h - 2, h - 1 -> n - 1, p -> p - 1 for h < p < n)."""
+    h = n // 2
+
+    def dst(p: int) -> int:
+        if p == 0:
+            return 0
+        if p == h:
+            return 1
+        if p == h - 1:
+            return n - 1
+        return p + 1 if p < h - 1 else p - 1
+
+    return [dst(p) for p in range(n)]
+
+
+def halfshift_src(n: int) -> list[int]:
+    """src[k]: the position that `rotate_positions` moves to position k,
+    the inverse of `halfshift_dst` (0, h, 1..h-2, h+1..n-1, h-1), in the
+    closed form the kernel computes."""
+    h = n // 2
+
+    def src(k: int) -> int:
+        if k == 0:
+            return 0
+        if k == 1:
+            return h
+        if k == n - 1:
+            return h - 1
+        return k - 1 if k < h else k + 1
+
+    return [src(k) for k in range(n)]
+
+
+def pingpong_threads(n: int) -> tuple[int, int, int]:
+    """(block threads, 2x2 blocks per block thread, rotation warps) of the
+    ping-pong route at even n: one rotation lane per pair in whole warps,
+    then the fewest blocks per thread that the rest of
+    PINGPONG_MAX_THREADS threads allow, and the fewest whole warps that
+    take every block at that count."""
+    h = n // 2
+    rot_warps = -(-h // 32)
+    blocks = h * h
+    per = -(-blocks // (PINGPONG_MAX_THREADS - 32 * rot_warps))
+    threads = -(-blocks // per)
+    return (threads + 31) // 32 * 32, per, rot_warps
+
+
+def pingpong_pair_inputs(
+    a: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each pair k's next a_kk, a_{k+h,k+h} and a_{k,k+h}, each (B, h), as
+    the ping-pong route's rotation lanes compute them from this step's A
+    and rotations (c, s): the entry of a rotated 2x2 block that lands
+    there, an entry in a block's bottom row or right column taken as the
+    top or left one with its operands swapped and s negated (s x + c y is
+    c y - (-s) x, bit for bit). The bits of the next A's entries."""
+    n = a.shape[-1]
+    h = n // 2
+    src = torch.tensor(halfshift_src(n), device=a.device)
+
+    def pair(x):
+        return torch.where(x < h, x, x - h)
+
+    def other(x):
+        return torch.where(x < h, x + h, x - h)
+
+    def entry(p, q):
+        cr, sr = c[:, pair(p)], torch.where(p < h, s[:, pair(p)], -s[:, pair(p)])
+        cq, sq = c[:, pair(q)], torch.where(q < h, s[:, pair(q)], -s[:, pair(q)])
+
+        def rows(col):
+            return cr * a[:, p, col] - sr * a[:, other(p), col]
+
+        return cq * rows(q) - sq * rows(other(q))
+
+    p1, p2 = src[:h], src[h:]
+    return entry(p1, p1), entry(p2, p2), entry(p1, p2)
+
+
+def pingpong_step(
+    a: torch.Tensor, vt: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of `jacobi_step` on (A, V^T) as the ping-pong route runs
+    it, given the step's rotations (c, s) (`pair_rotations` of A): the 2x2
+    block (ri, ci) of A, rows {ri, ri + h} x columns {ci, ci + h}, rotated
+    rows first and then columns, scattered to rows dst(ri), dst(ri + h) and
+    columns dst(ci), dst(ci + h) of a new buffer; V^T's rows ri, ri + h
+    rotated and scattered to rows dst(ri), dst(ri + h); and the next
+    step's rotations from `pingpong_pair_inputs`. Returns the next A and
+    V^T (the bits of `jacobi_step`) and rotations (the bits of
+    `pair_rotations` on the next A)."""
+    n = a.shape[-1]
+    h = n // 2
+    dst = torch.tensor(halfshift_dst(n), device=a.device)
+    cr, sr = c[:, :, None], s[:, :, None]  # the row pair ri
+    cc, sc = c[:, None, :], s[:, None, :]  # the column pair ci
+    a00, a01, a10, a11 = a[:, :h, :h], a[:, :h, h:], a[:, h:, :h], a[:, h:, h:]
+    t0, t1 = cr * a00 - sr * a10, cr * a01 - sr * a11
+    b0, b1 = sr * a00 + cr * a10, sr * a01 + cr * a11
+    r0, r1 = dst[:h, None], dst[h:, None]
+    c0, c1 = dst[None, :h], dst[None, h:]
+    a_next = torch.empty_like(a)
+    a_next[:, r0, c0] = cc * t0 - sc * t1
+    a_next[:, r0, c1] = sc * t0 + cc * t1
+    a_next[:, r1, c0] = cc * b0 - sc * b1
+    a_next[:, r1, c1] = sc * b0 + cc * b1
+    top, bot = vt[:, :h], vt[:, h:]
+    vt_next = torch.empty_like(vt)
+    vt_next[:, dst[:h]] = cr * top - sr * bot
+    vt_next[:, dst[h:]] = sr * top + cr * bot
+    return (a_next, vt_next, *rotations(*pingpong_pair_inputs(a, c, s)))
 
 
 def _sort_desc(

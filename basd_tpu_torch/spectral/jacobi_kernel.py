@@ -19,11 +19,21 @@ import torch
 from basd_tpu_torch import kernels
 from basd_tpu_torch.spectral import jacobi
 
-# A and V^T fit in one CTA's shared memory (227 KB) together up to 2 n^2
-# fp32 at n = 168; above that K3 keeps V^T in a device-memory scratch.
-# A alone fits up to n = 238.
+# K3's routes by n (`basd_jacobi_eigh` picks the same): to n = 96, the
+# selector's gate, A and V^T in two ping-pong buffers each (four padded
+# n x n fp32 buffers in one CTA's 227 KB of shared memory); to n = 168, A
+# and V^T in place (2 n^2); above that V^T in a device-memory scratch. A
+# alone fits up to n = 238.
+MAX_N_PINGPONG = 96
 MAX_N_SHARED_VT = 168
 MAX_N = 238
+
+
+def eigh_route(n: int) -> str:
+    """The route of `csrc/jacobi_eigh.cu:basd_jacobi_eigh` at even n."""
+    if n <= MAX_N_PINGPONG:
+        return "pingpong"
+    return "vt_shared" if n <= MAX_N_SHARED_VT else "vt_global"
 
 
 def _check(a: torch.Tensor) -> tuple[int, int]:

@@ -18,7 +18,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      K1-K4 at the train step's shapes, K1 and K2 also at the Table-1
      student's (256, 197, 384) H=6 and at the gate's edges, bf16 K1/K2 and
      SDPA also by device time alone (the host kept ahead of the card by a
-     spin kernel); K5 on the spectral
+     spin kernel); K3 on the main path's own eigh inputs, timed also by
+     device time alone per launch and per rotation step, on wide-spectrum
+     Grams and at every even n of its ping-pong route (4..96, there bit
+     for bit), each case printed with its route; K5 on the spectral
      tuner's own (12, 192, 192) token covariances and at an odd n (191);
      K3 at (48, 192, 192), its device-memory V^T route, on the sweeps
      probe's two spectrum families; K6 in all six variants at the
@@ -93,6 +96,8 @@ def main() -> int:
     from basd_tpu_torch.spectral import jacobi
     from basd_tpu_torch.ops import attn_probe
     from basd_tpu_torch.spectral.jacobi_kernel import (
+        _jacobi_raw_cuda,
+        eigh_route,
         kernel_jacobi_eigh,
         kernel_jacobi_eigvals,
     )
@@ -157,6 +162,26 @@ def main() -> int:
     if len(hmma) != 3 * 8 or min(hmma.values()) == 0:
         raise AssertionError(f"bf16 attention kernels without HMMA: {hmma}")
     print(f"sass: HMMA instructions per bf16 attention kernel {hmma}")
+    # the machine code of one rotation step of K3's ping-pong route at n = 48
+    # (the main path's): the instructions between the loop's first and
+    # second step barriers (barrier 0), the block threads' and the rotation
+    # lanes' code both, the IEEE division's and square root's branches to
+    # their slow paths included (taken only on special operands)
+    step_ops, fn = [], None
+    for line in kernels.sass("jacobi_eigh").splitlines():
+        if "Function :" in line:
+            fn = "jacobi_pingpong_kernelILi48E" in line
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            step_ops.append(line.split("*/", 1)[1].strip())
+    bars = [i for i, op in enumerate(step_ops)
+            if re.match(r"BAR\.SYNC\S* 0x0\s*;", op)]
+    if len(bars) < 3:
+        raise AssertionError(f"jacobi_pingpong_kernel<48>: barriers at {bars}")
+    one_step = step_ops[bars[1] + 1:bars[2] + 1]
+    mix = {k: sum(k in op for op in one_step) for k in
+           ("MUFU", "FFMA", "FMUL", "FADD", "LDS", "STS", "SHFL", "CALL", "BAR")}
+    print(f"sass: jacobi_pingpong_kernel<48> one rotation step: {len(one_step)} "
+          f"instructions per warp ({mix})")
 
     # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
     img, batch, num_classes, patch = 32, 128, 100, 4
@@ -314,8 +339,11 @@ def main() -> int:
 
     def jacobi_timing(a, sweeps=6, kernel=True):
         """The kernel (at sweeps=6 as the main path calls it), timed beside
-        the plain version and torch.linalg.eigh, with its bound. kernel=False
-        leaves the kernel's time to the tool that times it (phase 5b)."""
+        the plain version and torch.linalg.eigh, with its bound: `ms` by
+        the event loop of wrapper calls, `device_ms` the raw launch's
+        device time with the host held ahead (`kernel_ms`), and that per
+        rotation step in us. kernel=False leaves the kernel's time to the
+        tool that times it (phase 5b)."""
         bsz, nn_ = a.shape[0], a.shape[-1]
         n_even = nn_ + nn_ % 2
         steps = (n_even - 1) * sweeps
@@ -331,6 +359,9 @@ def main() -> int:
         )
         if kernel:
             row["ms"] = timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=sweeps), 20)
+            raw = jacobi.symmetrize_pad(a)[0].contiguous()
+            row["device_ms"] = kernel_ms(lambda: _jacobi_raw_cuda(raw, sweeps), dev)
+            row["us_per_step"] = row["device_ms"] * 1e3 / steps
         return row
 
     def eig_residuals(w, vec, a):
@@ -378,22 +409,25 @@ def main() -> int:
                 f"{orth_err} (tol 5e-5)")
         row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
                    eig6_err=eig6_err, recon_err=rec_err, orth_err=orth_err,
-                   **jacobi_timing(a))
+                   route=eigh_route(nn_), **jacobi_timing(a))
         report.setdefault("jacobi_eigh", {})[f"{what} ({bsz}, {nn_}, {nn_})"] = row
-        print(f"kernel jacobi_eigh {what} {(bsz, nn_, nn_)} (main-path input): "
-              f"vs plain {plain_rel:.3g} (tol 1e-4); orth {orth_err:.3g} (tol "
-              f"5e-5); sweeps=6 eig vs LAPACK {eig6_err:.3g}, recon "
-              f"{rec_err:.3g}; ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-              f"linalg.eigh {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
-              f"({row['bound_by']})")
+        print(f"kernel jacobi_eigh {what} {(bsz, nn_, nn_)} (main-path input, "
+              f"route {row['route']}): vs plain {plain_rel:.3g} (tol 1e-4); orth "
+              f"{orth_err:.3g} (tol 5e-5); sweeps=6 eig vs LAPACK {eig6_err:.3g}, "
+              f"recon {rec_err:.3g}; ms {row['ms']:.4f} (device "
+              f"{row['device_ms']:.4f}, {row['us_per_step']:.3f} us per step) plain "
+              f"{row['plain_ms']:.4f} linalg.eigh {row['library_ms']:.4f} bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']})")
 
     # K3 accuracy on Grams with a wide (1e0..1e-6) spectrum, converged
     # (sweeps=12), against float64 LAPACK. Eigenvalues (of max|w|),
     # reconstruction and orthogonality within 5e-5, or 1e-4 above n=48: the
     # fp32 floor grows with the rotation count (560 steps at n=48, 1140 at
-    # n=96) and sits above 1e-5. The kernel and the plain version differ by
-    # their rounding, within 1e-4 of max|w|.
-    for bsz, nn_ in [(12, 48), (48, 48), (8, 33), (4, 96), (3, 95), (5, 16)]:
+    # n=96) and sits above 1e-5. The kernel is held within 1e-4 of max|w|
+    # of the plain version (on the ping-pong route, every case here, it
+    # returns the plain version's bits; see below).
+    for bsz, nn_ in [(12, 48), (48, 48), (8, 33), (4, 80), (4, 96), (3, 95),
+                     (5, 16)]:
         tol = 5e-5 if nn_ <= 48 else 1e-4
         x = torch.randn((bsz, nn_, 2 * nn_), device=dev, generator=gen)
         x = x * torch.logspace(0, -3, 2 * nn_, device=dev)
@@ -413,14 +447,45 @@ def main() -> int:
             raise AssertionError(
                 f"jacobi_eigh {(bsz, nn_, nn_)}: vs plain {plain_rel} eig "
                 f"{eig_err} recon {rec_err} orth {orth_err} (tol {tol})")
+        route = eigh_route(nn_ + nn_ % 2)
         report.setdefault("jacobi_eigh", {})[f"wide spectrum ({bsz}, {nn_}, {nn_})"] = dict(
             max_abs_err=(w12 - wp12).abs().max().item(), rel_err=plain_rel,
             eig6_err=eig6_err, eig_err=eig_err, recon_err=rec_err,
-            orth_err=orth_err, **(jacobi_timing(a) if nn_ == 48 else {}))
-        print(f"kernel jacobi_eigh wide spectrum {(bsz, nn_, nn_)}: sweeps=12 "
-              f"vs plain {plain_rel:.3g} (tol 1e-4), eig {eig_err:.3g} recon "
+            orth_err=orth_err, route=route,
+            **(jacobi_timing(a) if nn_ == 48 else {}))
+        print(f"kernel jacobi_eigh wide spectrum {(bsz, nn_, nn_)} (route {route}): "
+              f"sweeps=12 vs plain {plain_rel:.3g} (tol 1e-4), eig {eig_err:.3g} recon "
               f"{rec_err:.3g} orth {orth_err:.3g} (tol {tol}); sweeps=6 eig vs "
               f"LAPACK {eig6_err:.3g}")
+
+    # K3's ping-pong route at every even n it takes (4..96: one, two and
+    # three 2x2 blocks per thread, odd and even h) on random PSD Grams,
+    # converged (sweeps=12): the plain version's eigenvalues and vectors bit
+    # for bit (the route rounds every operation as the plain version's torch
+    # ops do), and within 1e-4 of max|w|, V orthogonal within 1e-4 (the
+    # wide-spectrum bound above n = 48)
+    worst, us_by_n = (0.0, 0.0), {}
+    for nn_ in range(4, 97, 2):
+        x = torch.randn((4, nn_, nn_), device=dev, generator=gen)
+        a = x @ x.transpose(-1, -2) / nn_
+        us_by_n[nn_] = round(kernel_ms(lambda: _jacobi_raw_cuda(a, 6), dev)
+                             * 1e3 / ((nn_ - 1) * 6), 4)
+        w, vec = kernel_jacobi_eigh(a, sweeps=12)
+        wp, vp = jacobi.jacobi_eigh(a, sweeps=12)
+        torch.cuda.synchronize()
+        exact = torch.equal(w, wp) and torch.equal(vec, vp)
+        plain_rel = ((w - wp).abs().amax(-1) / wp.abs().amax(-1)).max().item()
+        orth_err = eig_residuals(w, vec, a)[1]
+        if not (eigh_route(nn_) == "pingpong" and exact and plain_rel <= 1e-4
+                and orth_err <= 1e-4):
+            raise AssertionError(
+                f"jacobi_eigh n={nn_} route {eigh_route(nn_)}: bit for bit "
+                f"{exact}, vs plain {plain_rel} orth {orth_err} (tol 1e-4)")
+        worst = (max(worst[0], plain_rel), max(worst[1], orth_err))
+    print(f"kernel jacobi_eigh ping-pong route at every even n 4..96 (4, n, n) "
+          f"sweeps=12: bit for bit the plain version's, vs plain {worst[0]:.3g}, "
+          f"orth {worst[1]:.3g} (tol 1e-4); "
+          f"device us per rotation step at sweeps=6 by n {us_by_n}")
 
     # K4 on fp32 (B, n, n, C) images with rows that cover every geometric
     # op at its extremes (shear +-0.99, translate +-32, rotate +-135 and
@@ -572,12 +637,13 @@ def main() -> int:
                 f"orth {orth_err} recon {rec_err} (tol 2e-4)")
         row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
                    eig6_err=eig6_err, eig_err=eig_err, recon_err=rec_err,
-                   orth_err=orth_err)
+                   orth_err=orth_err, route=eigh_route(192))
         for sw in (6, 12):
             row.update({f"{k}_sweeps{sw}": v
                         for k, v in jacobi_timing(a, sw, kernel=False).items()})
         report["jacobi_eigh"][f"{family} (48, 192, 192)"] = row
-        print(f"kernel jacobi_eigh {family} (48, 192, 192) (V^T in device memory): "
+        print(f"kernel jacobi_eigh {family} (48, 192, 192) (route {row['route']}, "
+              "V^T in device memory): "
               f"sweeps=12 vs plain {plain_rel:.3g} (tol 1e-4), orth {orth_err:.3g} "
               f"recon {rec_err:.3g} (tol 2e-4), eig vs LAPACK {eig_err:.3g}; "
               f"sweeps=6 eig vs LAPACK {eig6_err:.3g}; plain "
@@ -848,7 +914,7 @@ def main() -> int:
     # the port's own kernels (csrc/*.cu); PyTorch's softmax and arange
     # kernels also sit in anonymous namespaces
     own_kernel = re.compile(
-        r"void \(anonymous namespace\)::(attn_\w+|jacobi_kernel|warp_kernel)[<(]")
+        r"void \(anonymous namespace\)::(attn_\w+|jacobi_\w*kernel|warp_kernel)[<(]")
     own = [e for e in dev_events if own_kernel.match(e.key)]
     print(f"profile: the port's kernels {sum(device_us(e) for e in own) / 1e3:.3f} "
           f"ms of device time in the step")
@@ -883,8 +949,8 @@ def main() -> int:
     measured = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                 "bound_ms", "bound_by",
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
-                "orth_err", "eig3_err", "k1_ms", "k1_plain_ms", "k1_bound_ms",
-                "sdpa_ms", "differing",
+                "orth_err", "eig3_err", "us_per_step", "route", "k1_ms",
+                "k1_plain_ms", "k1_bound_ms", "sdpa_ms", "differing",
                 *(f"{k}_sweeps{sw}" for sw in (6, 12)
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")))
     entries = []
@@ -903,7 +969,8 @@ def main() -> int:
                       for case, r in report[name].items()},
         })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
-                      "deterministic_step_ms": det_step_ms}))
+                      "deterministic_step_ms": det_step_ms,
+                      "jacobi_eigh_us_per_step_by_n": us_by_n}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
