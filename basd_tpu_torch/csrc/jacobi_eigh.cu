@@ -23,44 +23,49 @@
 // step, not by bytes or operations: one CTA per matrix, so every matrix
 // of the batch runs at once on its own SM, A resident in shared memory
 // for the whole run, and as little as possible on each step's critical
-// path. Four routes, by n and by what fits in a CTA's 227 KB of shared
-// memory:
-//   * kPingPong (K3, n <= 96, the selector's gate 16 <= n <= 96 and the
-//     main path's n = 48), one instantiation per even n: A and V^T in
-//     logical order, each in two ping-pong buffers (4 n ld floats, rows
-//     ld >= n apart so that a warp's blocks fall in 32 banks: 42 KB at
-//     n = 48, 168 KB at n = 96). A block thread reads the 2x2 block
-//     (ri, ci) of A, rows {ri, ri + h} x columns {ci, ci + h}, and V^T's
-//     rows {ri, ri + h} at columns {ci, ci + h} from the current buffers,
-//     and writes the rotated values to the other buffers at the next
-//     step's positions dst(.), the inverse of the half-shift
-//     (basd_tpu_torch/spectral/jacobi.py:halfshift_dst, in closed form
-//     below; `pingpong_step` there is this step in torch). So there is no
-//     index map and no permutation phase, and every address is a register
-//     fixed before the loop plus an immediate. The step's critical path
-//     is the rotation's chain of five dependent IEEE divisions and square
-//     roots, so it runs beside the blocks' work instead of before it: the
+// path. Four routes; the wrapper picks K3's by n
+// (basd_tpu_torch/spectral/jacobi_kernel.py:eigh_route) and calls its entry
+// point, which refuses an n that it was not built for or that does not fit
+// a CTA's 227 KB of shared memory:
+//   * kPingPong (K3, `basd_jacobi_eigh_pingpong`, even n <= 96: the
+//     selector's gate 16 <= n <= 96 and the main path's n = 48), one
+//     instantiation per even n: A and V^T in logical order, each in two
+//     ping-pong buffers (4 n ld floats, rows ld >= n apart so that a warp's
+//     blocks fall in 32 banks: 42 KB at n = 48, 168 KB at n = 96). A block
+//     thread reads the 2x2 block (ri, ci) of A, rows {ri, ri + h} x
+//     columns {ci, ci + h}, and V^T's rows {ri, ri + h} at columns
+//     {ci, ci + h} from the current buffers, and writes the rotated values
+//     to the other buffers at the next step's positions dst(.), the inverse
+//     of the half-shift (basd_tpu_torch/spectral/jacobi.py:halfshift_dst,
+//     in closed form below; `pingpong_step` there is this step in torch).
+//     So there is no index map and no permutation phase, and every address
+//     is a register fixed before the loop plus an immediate (n at run
+//     time, with the offsets in registers, made the step 22% longer at
+//     n = 48 on an H100; PERF.md §6). The step's critical path is the
+//     rotation's chain of five dependent IEEE divisions and square roots,
+//     so it runs beside the blocks' work instead of before it: the
 //     rotation warps' lane k computes pair k's rotation a step ahead, from
 //     the entries that the blocks rotate into its next a_kk, a_{k+h,k+h}
 //     and a_{k,k+h}, rotated by the lane itself
 //     (`jacobi.py:pingpong_pair_inputs`), and the block threads read the
 //     step's rotations from shared memory. One barrier per step, and up to
 //     n = 60 a one-way named barrier that lets the rotation lanes' loads
-//     go first. Threads follow `jacobi.py:pingpong_threads`: one rotation
-//     lane per pair in whole warps, and the fewest blocks per block thread
-//     that the rest of 1024 threads allow (1 to n = 62, 2 to n = 86, 3 to
-//     n = 96). A is rotated in full, as in the plain version (its fp32
-//     rounding is not symmetric), and every product, sum and difference is
-//     rounded on its own, as torch's elementwise ops round them (no FMA
-//     contraction), so the route returns the plain version's bits;
-//   * kVtShared (K3, 96 < n <= 168): A and V^T both in shared memory
-//     (2 n^2), each thread updating whole 2x2 blocks of A in place, the
-//     permutation an index map (logical position -> row), two barriers a
-//     step;
-//   * kVtGlobal (K3, 168 < n <= 238): as kVtShared with V^T in a
-//     device-memory scratch of n^2 per matrix that the wrapper allocates;
-//     its rows are rotated in place through L2 (7 MB at (48, 192, 192)),
-//     and the final logical-order copy goes to vt_out;
+//     go first. Threads: one rotation lane per pair in whole warps, and the
+//     fewest blocks per block thread that the rest of 1024 threads allow
+//     (1 to n = 62, 2 to n = 86, 3 to n = 96). A is rotated in full, as in
+//     the plain version (its fp32 rounding is not symmetric), and every
+//     product, sum and difference is rounded on its own, as torch's
+//     elementwise ops round them (no FMA contraction), so the route
+//     returns the plain version's bits;
+//   * kVtShared (K3, `basd_jacobi_eigh` without a scratch, to n = 168): A
+//     and V^T both in shared memory (2 n^2), each thread updating whole
+//     2x2 blocks of A in place, the permutation an index map (logical
+//     position -> row), two barriers a step;
+//   * kVtGlobal (K3, `basd_jacobi_eigh` with a scratch, to n = 238): as
+//     kVtShared with V^T in a device-memory scratch of n^2 per matrix that
+//     the wrapper allocates; its rows are rotated in place through L2
+//     (7 MB at (48, 192, 192)), and the final logical-order copy goes to
+//     vt_out;
 //   * kNoVt (K5, n <= 238): as kVtShared with A alone, no eigenvector
 //     accumulator.
 //
@@ -74,7 +79,6 @@ namespace {
 enum Route { kVtShared = 0, kVtGlobal = 1, kNoVt = 2 };
 
 constexpr int kMaxNPingPong = 96;
-constexpr int kMaxNSharedVt = 168;
 constexpr int kPingPongMaxThreads = 1024;
 constexpr int kMaxNLoadsFirst = 60;
 
@@ -92,7 +96,11 @@ __device__ __forceinline__ void pair_rotation(float app, float aqq, float apq,
 
 // The kPingPong route rounds every product, sum and difference on its own,
 // as torch's elementwise ops in the plain version do (no FMA contraction),
-// so it returns the plain version's bits.
+// so it returns the plain version's bits. The position-map routes keep the
+// contracted form above: this one made them slower on an H100 (kVtShared
+// by 7.9% at (4, 128, 128), kVtGlobal by 2.7% at (48, 192, 192), K5 by 1.3%
+// at (12, 192, 192)), and `/` and sqrtf in its place made the ping-pong
+// route 5% slower at n = 48 (PERF.md §6, basd_tpu_torch/tools/time_jacobi.py).
 __device__ __forceinline__ void pair_rotation_rn(float app, float aqq, float apq,
                                                  float& c, float& s) {
   const bool safe = fabsf(apq) > 1e-30f;
@@ -147,7 +155,7 @@ struct PingPong {
   static constexpr int kLd = kN + (32 - kH % 32) % 32;
   static constexpr int kSz = kN * kLd;  // floats per matrix buffer
   // threads: the block threads, then the rotation warps, whose lane k
-  // computes pair k's rotation (`jacobi.py:pingpong_threads`)
+  // computes pair k's rotation
   static constexpr int kRotWarps = (kH + 31) / 32;
   static constexpr int kBlocks = kH * kH;
   static constexpr int kMaxBlockThreads = kPingPongMaxThreads - 32 * kRotWarps;
@@ -502,20 +510,20 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 
 }  // namespace
 
-// K3: eigenvalues and V^T, the route picked by n (as
-// basd_tpu_torch/spectral/jacobi_kernel.py:eigh_route): kPingPong to
-// n = 96, kVtShared to n = 168, kVtGlobal above. `scratch` holds batch x
-// n x n floats for kVtGlobal and is null otherwise.
+// K3, the kPingPong route at even n <= 96.
+extern "C" int basd_jacobi_eigh_pingpong(const void* a, void* w, void* vt, int batch,
+                                         int n, int steps, void* stream) {
+  if (n < 4 || n > kMaxNPingPong || n % 2 != 0 || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_pingpong<4>(a, w, vt, batch, n, steps, stream);
+}
+
+// K3, the position-map routes: kVtShared when `scratch` is null, kVtGlobal
+// when it holds batch x n x n floats for V^T.
 extern "C" int basd_jacobi_eigh(const void* a, void* w, void* vt,
                                 void* scratch, int batch, int n, int steps,
                                 void* stream) {
-  if ((n > kMaxNSharedVt) != (scratch != nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (n <= kMaxNPingPong) {
-    if (n < 4 || n % 2 != 0 || batch <= 0) return (int)cudaErrorInvalidValue;
-    return launch_pingpong<4>(a, w, vt, batch, n, steps, stream);
-  }
-  if (n <= kMaxNSharedVt)
+  if (scratch == nullptr)
     return launch<kVtShared>(a, w, vt, nullptr, batch, n, steps, stream);
   return launch<kVtGlobal>(a, w, vt, scratch, batch, n, steps, stream);
 }

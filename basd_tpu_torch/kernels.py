@@ -38,7 +38,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         "basd_attention_bwd": [_P] * 10 + [_I] * 4 + [_L] * 8 + [_I, _P],
     },
     "jacobi_eigh": {
-        # a, w, vt, scratch (null for n <= 168), batch, n, steps, stream
+        # a, w, vt, batch, n, steps, stream
+        "basd_jacobi_eigh_pingpong": [_P] * 3 + [_I] * 3 + [_P],
+        # a, w, vt, scratch (null: V^T in shared memory), batch, n, steps,
+        # stream
         "basd_jacobi_eigh": [_P] * 4 + [_I] * 3 + [_P],
         # a, w, batch, n, steps, stream
         "basd_jacobi_eigvals": [_P] * 2 + [_I] * 3 + [_P],

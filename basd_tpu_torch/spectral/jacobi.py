@@ -92,8 +92,6 @@ def jacobi_step(
 # straight to the next step's positions in a second buffer.
 # ---------------------------------------------------------------------------
 
-PINGPONG_MAX_THREADS = 1024
-
 
 def halfshift_dst(n: int) -> list[int]:
     """dst[p]: the position that `rotate_positions` moves position p to,
@@ -129,20 +127,6 @@ def halfshift_src(n: int) -> list[int]:
         return k - 1 if k < h else k + 1
 
     return [src(k) for k in range(n)]
-
-
-def pingpong_threads(n: int) -> tuple[int, int, int]:
-    """(block threads, 2x2 blocks per block thread, rotation warps) of the
-    ping-pong route at even n: one rotation lane per pair in whole warps,
-    then the fewest blocks per thread that the rest of
-    PINGPONG_MAX_THREADS threads allow, and the fewest whole warps that
-    take every block at that count."""
-    h = n // 2
-    rot_warps = -(-h // 32)
-    blocks = h * h
-    per = -(-blocks // (PINGPONG_MAX_THREADS - 32 * rot_warps))
-    threads = -(-blocks // per)
-    return (threads + 31) // 32 * 32, per, rot_warps
 
 
 def pingpong_pair_inputs(

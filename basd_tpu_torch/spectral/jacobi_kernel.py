@@ -19,18 +19,21 @@ import torch
 from basd_tpu_torch import kernels
 from basd_tpu_torch.spectral import jacobi
 
-# K3's routes by n (`basd_jacobi_eigh` picks the same): to n = 96, the
-# selector's gate, A and V^T in two ping-pong buffers each (four padded
-# n x n fp32 buffers in one CTA's 227 KB of shared memory); to n = 168, A
-# and V^T in place (2 n^2); above that V^T in a device-memory scratch. A
-# alone fits up to n = 238.
+# K3's routes by n, chosen here and nowhere else (the library's entry
+# points only refuse an n that they were not built for or that does not
+# fit): to n = 96, the selector's gate, A and V^T in two ping-pong buffers
+# each (four padded n x n fp32 buffers in one CTA's 227 KB of shared
+# memory); to n = 168, A and V^T in place (2 n^2); above that V^T in a
+# device-memory scratch. A alone fits up to n = 238.
 MAX_N_PINGPONG = 96
 MAX_N_SHARED_VT = 168
 MAX_N = 238
 
 
 def eigh_route(n: int) -> str:
-    """The route of `csrc/jacobi_eigh.cu:basd_jacobi_eigh` at even n."""
+    """K3's route at even n, the one `_jacobi_raw_cuda` launches:
+    "pingpong" (`basd_jacobi_eigh_pingpong`), "vt_shared" or "vt_global"
+    (`basd_jacobi_eigh` without and with a V^T scratch)."""
     if n <= MAX_N_PINGPONG:
         return "pingpong"
     return "vt_shared" if n <= MAX_N_SHARED_VT else "vt_global"
@@ -55,16 +58,23 @@ def _jacobi_raw_cuda(a: torch.Tensor, sweeps: int):
     b, n = _check(a)
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     vt = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
-    scratch = None
-    if n > MAX_N_SHARED_VT:
-        scratch = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
     lib = kernels.library("jacobi_eigh")
-    status = lib.basd_jacobi_eigh(
-        a.data_ptr(), w.data_ptr(), vt.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), b, n,
-        (n - 1) * sweeps, _stream(a),
-    )
-    kernels.check(status, "basd_jacobi_eigh")
+    route = eigh_route(n)
+    if route == "pingpong":
+        status = lib.basd_jacobi_eigh_pingpong(
+            a.data_ptr(), w.data_ptr(), vt.data_ptr(), b, n, (n - 1) * sweeps,
+            _stream(a),
+        )
+    else:
+        scratch = None
+        if route == "vt_global":
+            scratch = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
+        status = lib.basd_jacobi_eigh(
+            a.data_ptr(), w.data_ptr(), vt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, n,
+            (n - 1) * sweeps, _stream(a),
+        )
+    kernels.check(status, f"jacobi_eigh route {route}")
     kernels.LAUNCHES["jacobi_eigh"] += 1
     return w, vt
 

@@ -21,8 +21,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      spin kernel); K3 on the main path's own eigh inputs, timed also by
      device time alone per launch and per rotation step, on wide-spectrum
      Grams and at every even n of its ping-pong route (4..96, there bit
-     for bit), each case printed with its route; K5 on the spectral
-     tuner's own (12, 192, 192) token covariances and at an odd n (191);
+     for bit), and through its shared-memory position-map route at
+     (4, 128, 128) and (3, 167, 167), each case printed with its route;
+     K5 on the spectral tuner's own (12, 192, 192) token covariances and
+     at an odd n (191);
      K3 at (48, 192, 192), its device-memory V^T route, on the sweeps
      probe's two spectrum families; K6 in all six variants at the
      teacher's attention shape (256, 12, 257, 64), with K1 checked on the
@@ -167,6 +169,7 @@ def main() -> int:
     # second step barriers (barrier 0), the block threads' and the rotation
     # lanes' code both, the IEEE division's and square root's branches to
     # their slow paths included (taken only on special operands)
+    pp_fn = "jacobi_pingpong_kernel<48>"
     step_ops, fn = [], None
     for line in kernels.sass("jacobi_eigh").splitlines():
         if "Function :" in line:
@@ -176,11 +179,12 @@ def main() -> int:
     bars = [i for i, op in enumerate(step_ops)
             if re.match(r"BAR\.SYNC\S* 0x0\s*;", op)]
     if len(bars) < 3:
-        raise AssertionError(f"jacobi_pingpong_kernel<48>: barriers at {bars}")
+        raise AssertionError(f"{pp_fn}: barriers at {bars}")
     one_step = step_ops[bars[1] + 1:bars[2] + 1]
     mix = {k: sum(k in op for op in one_step) for k in
-           ("MUFU", "FFMA", "FMUL", "FADD", "LDS", "STS", "SHFL", "CALL", "BAR")}
-    print(f"sass: jacobi_pingpong_kernel<48> one rotation step: {len(one_step)} "
+           ("MUFU", "FFMA", "FMUL", "FADD", "IADD", "LDS", "STS", "SHFL", "CALL",
+            "BAR")}
+    print(f"sass: {pp_fn} one rotation step: {len(one_step)} "
           f"instructions per warp ({mix})")
 
     # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
@@ -486,6 +490,43 @@ def main() -> int:
           f"sweeps=12: bit for bit the plain version's, vs plain {worst[0]:.3g}, "
           f"orth {worst[1]:.3g} (tol 1e-4); "
           f"device us per rotation step at sweeps=6 by n {us_by_n}")
+
+    # K3's route with A and V^T in shared memory and a position map
+    # (96 < n <= 168) on wide-spectrum Grams, converged (sweeps=12), odd n
+    # padded: within 1e-4 of max|w| of the plain version, V orthogonal and
+    # A = V diag(w) V^T within 1e-4 (about 1,500 and 2,000 rotation steps;
+    # the fp32 floor grows with them, 3.4e-5 at n = 96); the eigenvalue
+    # error against float64 LAPACK is reported. Timed at (4, 128, 128).
+    for bsz, nn_ in [(4, 128), (3, 167)]:
+        x = torch.randn((bsz, nn_, 2 * nn_), device=dev, generator=gen)
+        x = x * torch.logspace(0, -3, 2 * nn_, device=dev)
+        a = x @ x.transpose(-1, -2)
+        w, vec = kernel_jacobi_eigh(a, sweeps=12)
+        wp, _ = jacobi.jacobi_eigh(a, sweeps=12)
+        w64 = torch.linalg.eigvalsh(a.double()).flip(-1)
+        torch.cuda.synchronize()
+        scale = w64.abs().amax(-1)
+        plain_rel = ((w - wp).abs().amax(-1) / scale).max().item()
+        eig_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
+        rec_err, orth_err = eig_residuals(w, vec, a)
+        route = eigh_route(nn_ + nn_ % 2)
+        if not (route == "vt_shared" and plain_rel <= 1e-4 and rec_err <= 1e-4
+                and orth_err <= 1e-4):
+            raise AssertionError(
+                f"jacobi_eigh {(bsz, nn_, nn_)} route {route}: vs plain {plain_rel} "
+                f"recon {rec_err} orth {orth_err} (tol 1e-4)")
+        row = report["jacobi_eigh"][f"wide spectrum ({bsz}, {nn_}, {nn_})"] = dict(
+            max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
+            eig_err=eig_err, recon_err=rec_err, orth_err=orth_err, route=route,
+            **(jacobi_timing(a) if nn_ == 128 else {}))
+        timing = (f"; ms {row['ms']:.4f} (device {row['device_ms']:.4f}, "
+                  f"{row['us_per_step']:.3f} us per step at sweeps=6) plain "
+                  f"{row['plain_ms']:.4f} linalg.eigh {row['library_ms']:.4f} bound "
+                  f"{row['bound_ms']:.5f} ({row['bound_by']})" if "ms" in row else "")
+        print(f"kernel jacobi_eigh wide spectrum {(bsz, nn_, nn_)} (route {route}, "
+              f"A and V^T in shared memory): sweeps=12 vs plain {plain_rel:.3g} (tol "
+              f"1e-4), recon {rec_err:.3g} orth {orth_err:.3g} (tol 1e-4), eig vs "
+              f"LAPACK {eig_err:.3g}{timing}")
 
     # K4 on fp32 (B, n, n, C) images with rows that cover every geometric
     # op at its extremes (shear +-0.99, translate +-32, rotate +-135 and

@@ -1,10 +1,10 @@
 """The layout of the Jacobi eigh kernel's ping-pong route (n <= 96), held
-on the CPU: the destination and source maps, the thread partition, one
-ping-pong step written as a scatter into a second buffer, and the next
-step's rotations as the rotation lanes compute them, bit for bit against
-`jacobi_step` and `pair_rotations` at every even n the route takes; a
-whole run of ping-pong steps bit for bit against `jacobi_eigh` and within
-tolerance of the JAX package's `jacobi_eigh`."""
+on the CPU: the destination and source maps, the route that the wrapper
+launches by n, one ping-pong step written as a scatter into a second
+buffer, and the next step's rotations as the rotation lanes compute them,
+bit for bit against `jacobi_step` and `pair_rotations` at every even n the
+route takes; a whole run of ping-pong steps bit for bit against
+`jacobi_eigh` and within tolerance of the JAX package's `jacobi_eigh`."""
 
 from __future__ import annotations
 
@@ -69,22 +69,44 @@ def test_pingpong_pair_inputs_take_every_half(n):
     assert torch.equal(apq, torch.diagonal(nxt[:, :h, h:], dim1=-2, dim2=-1))
 
 
-@pytest.mark.parametrize("n", EVEN_N)
-def test_pingpong_threads_cover_every_block_once(n):
-    """The kernel's block thread t takes the blocks t + j * threads,
-    j < per: every 2x2 block exactly once, no thread more than `per`, with
-    `per` the least that 1024 threads allow beside one rotation lane per
-    pair in whole warps."""
-    threads, per, rot_warps = tjacobi.pingpong_threads(n)
-    blocks = (n // 2) ** 2
-    assert rot_warps * 32 >= n // 2 > (rot_warps - 1) * 32
-    assert threads % 32 == 0
-    assert threads + 32 * rot_warps <= tjacobi.PINGPONG_MAX_THREADS
-    assert per == -(-blocks // (tjacobi.PINGPONG_MAX_THREADS - 32 * rot_warps))
-    taken = [t + j * threads for t in range(threads) for j in range(per)
-             if t + j * threads < blocks]
-    assert sorted(taken) == list(range(blocks))
-    assert jacobi_kernel.eigh_route(n) == "pingpong"
+class _RecordingLibrary:
+    """Stands in for the Jacobi kernel library: records each entry point
+    called and its arguments, and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def basd_jacobi_eigh_pingpong(self, *args):
+        self.calls.append(("basd_jacobi_eigh_pingpong", args))
+        return 0
+
+    def basd_jacobi_eigh(self, *args):
+        self.calls.append(("basd_jacobi_eigh", args))
+        return 0
+
+
+@pytest.mark.parametrize("n", range(4, jacobi_kernel.MAX_N + 1, 2))
+def test_raw_launch_takes_the_route_of_eigh_route(n, monkeypatch):
+    """`_jacobi_raw_cuda` launches the route that `eigh_route` names, and
+    only that: the ping-pong entry point to n = 96, the position-map entry
+    point above, with a V^T scratch exactly on the device-memory route;
+    one launch counted."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(jacobi_kernel.kernels, "library", lambda name: lib)
+    monkeypatch.setattr(jacobi_kernel, "_stream", lambda a: 0)
+    monkeypatch.setitem(jacobi_kernel.kernels.LAUNCHES, "jacobi_eigh", 0)
+    jacobi_kernel._jacobi_raw_cuda(torch.zeros((2, n, n)), sweeps=3)
+    [(entry, args)] = lib.calls
+    route = jacobi_kernel.eigh_route(n)
+    steps = (n - 1) * 3
+    if route == "pingpong":
+        assert entry == "basd_jacobi_eigh_pingpong"
+        assert args[3:6] == (2, n, steps)
+    else:
+        assert entry == "basd_jacobi_eigh"
+        assert (args[3] is not None) == (route == "vt_global")
+        assert args[4:7] == (2, n, steps)
+    assert jacobi_kernel.kernels.LAUNCHES["jacobi_eigh"] == 1
 
 
 def test_eigh_routes_by_n():
