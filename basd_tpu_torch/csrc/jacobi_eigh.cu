@@ -66,8 +66,10 @@
 //     the wrapper allocates; its rows are rotated in place through L2
 //     (7 MB at (48, 192, 192)), and the final logical-order copy goes to
 //     vt_out;
-//   * kNoVt (K5, n <= 238): as kVtShared with A alone, no eigenvector
-//     accumulator.
+//   * kPacked (K5, `basd_jacobi_eigvals_packed`, even n <= 238, n at run
+//     time) and kFixedN (K5, `basd_jacobi_eigvals_packed_fixed`, the same
+//     kernel instantiated for the tuner's n = 192): see the note above
+//     `jacobi_packed_kernel` below.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast math: IEEE division and sqrt).
@@ -76,7 +78,7 @@
 
 namespace {
 
-enum Route { kVtShared = 0, kVtGlobal = 1, kNoVt = 2 };
+enum Route { kVtShared = 0, kVtGlobal = 1 };
 
 constexpr int kMaxNPingPong = 96;
 constexpr int kPingPongMaxThreads = 1024;
@@ -385,8 +387,9 @@ int launch_pingpong(const void* a, void* w, void* vt, int batch, int n,
   return (int)cudaErrorInvalidValue;
 }
 
-// the shared-memory route keeps K3's original 512 threads; the A-only
-// routes run n = 192 (18 2x2 blocks per thread at 512) with 1024
+// the shared-memory route keeps K3's original 512 threads; the
+// device-memory route runs n = 192 (18 2x2 blocks per thread at 512) with
+// 1024
 template <int kRoute>
 __host__ __device__ constexpr int threads_of() { return kRoute == kVtShared ? 512 : 1024; }
 
@@ -409,7 +412,7 @@ jacobi_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
   const long long base = (long long)blockIdx.x * n * n;
   float* A = smem;                                        // n x n, physical
   float* VT = kRoute == kVtShared ? A + n * n             // n x n, physical
-            : kRoute == kVtGlobal ? vt_scratch + base : nullptr;
+                                  : vt_scratch + base;
   float* cs = A + (kRoute == kVtShared ? 2 : 1) * n * n;  // h
   float* sn = cs + h;                                     // h
   int* pos = (int*)(sn + h);  // 2 x n: logical -> physical, double buffer
@@ -417,10 +420,8 @@ jacobi_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
 
   for (int i = tid; i < n * n; i += kThreads) {
     A[i] = a_in[base + i];
-    if (kRoute != kNoVt) {
-      const int r = i / n;
-      VT[i] = (r == i - r * n) ? 1.f : 0.f;
-    }
+    const int r = i / n;
+    VT[i] = (r == i - r * n) ? 1.f : 0.f;
   }
   for (int i = tid; i < n; i += kThreads) pos[i] = i;
   __syncthreads();
@@ -454,15 +455,13 @@ jacobi_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
     }
     // V^T <- J^T V^T on the logical row pairs (the barrier below makes the
     // scratch's global writes visible to the whole block, as for shared)
-    if (kRoute != kNoVt) {
-      for (int idx = tid; idx < h * n; idx += kThreads) {
-        const int i = idx / n, col = idx - i * n;
-        const int r0 = P[i], r1 = P[i + h];
-        const float top = VT[r0 * n + col], bot = VT[r1 * n + col];
-        const float c = cs[i], s = sn[i];
-        VT[r0 * n + col] = c * top - s * bot;
-        VT[r1 * n + col] = s * top + c * bot;
-      }
+    for (int idx = tid; idx < h * n; idx += kThreads) {
+      const int i = idx / n, col = idx - i * n;
+      const int r0 = P[i], r1 = P[i + h];
+      const float top = VT[r0 * n + col], bot = VT[r1 * n + col];
+      const float c = cs[i], s = sn[i];
+      VT[r0 * n + col] = c * top - s * bot;
+      VT[r1 * n + col] = s * top + c * bot;
     }
     // half-shift permutation of the logical positions
     for (int j = tid; j < n; j += kThreads) {
@@ -483,11 +482,9 @@ jacobi_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
     const int p = P[i];
     w_out[(long long)blockIdx.x * n + i] = A[p * n + p];
   }
-  if (kRoute != kNoVt) {
-    for (int idx = tid; idx < n * n; idx += kThreads) {
-      const int i = idx / n, col = idx - i * n;
-      vt_out[base + idx] = VT[P[i] * n + col];
-    }
+  for (int idx = tid; idx < n * n; idx += kThreads) {
+    const int i = idx / n, col = idx - i * n;
+    vt_out[base + idx] = VT[P[i] * n + col];
   }
 }
 
@@ -506,6 +503,324 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
   jacobi_kernel<kRoute><<<batch, threads_of<kRoute>(), smem, (cudaStream_t)stream>>>(
       (const float*)a, (float*)w, (float*)vt, (float*)scratch, n, steps);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// kPacked, K5 (eigenvalues only) at even n <= 238: PR 5's ping-pong step
+// carried to large n on the upper block triangle of A.
+//
+// What bounded the route it replaces (kVtShared's loop with A alone, one
+// CTA per matrix, 1,719 dependent steps at (12, 192, 192) and sweeps 9):
+// each step computed the h rotations through a position map in front of
+// the block work (a chain of five dependent IEEE divisions and square
+// roots), took two barriers, made four map loads per 2x2 block and
+// permuted the map: 4.08 us a step, 7.0 ms a launch on an H100 (PERF.md
+// §6). The ping-pong route of K3 takes all of that off the step, but two
+// full buffers at n = 192 need 294,912 B, more than a CTA's 232,448.
+//
+// Here A, which is symmetric, is held as the blocks (R, C), R <= C, of
+// the h x h grid of 2x2 blocks (rows {R, R + h} x columns {C, C + h}),
+// h (h + 1) / 2 of them in row-major order, in four planes TL, TR, BL, BR
+// of m = h (h + 1) / 2 floats each: 74,496 B a buffer at n = 192, two
+// buffers in ping-pong (228,512 B with the rotations at n = 238, the
+// largest n that fits). An entry (p, q) is held once, in its canonical
+// slot: that of the block (pair(p), pair(q)) when pair(p) < pair(q), of
+// (pair(q), pair(p)) when pair(p) > pair(q); in a diagonal block (R, R)
+// the planes TL, TR and BR hold a_RR, a_{R,R+h} and a_{R+h,R+h}, and a
+// read of its BL is one of TR (so the BL slot is never read). A block
+// thread rotates its blocks with this step's rotations (rows by pair R,
+// columns by pair C) and writes each rotated entry to the canonical slot
+// of its next position (dst(p), dst(q)) in the other buffer, transposed
+// where that falls below the diagonal: dst is a bijection, so each slot of
+// the next buffer is written exactly once (the rotated BL of a diagonal
+// block, whose canonical slot is its TR's, goes to a dummy slot at the end
+// of the buffer). Rotation warps compute each pair's next rotation a step
+// ahead from the three canonical entries that land on its a_kk,
+// a_{k+h,k+h} and a_{k,k+h}, rotated by the lane exactly as the block
+// threads rotate them (basd_tpu_torch/spectral/jacobi.py:packed_step and
+// packed_pair_inputs are this step in torch). So one barrier a step, no
+// position map, no permutation phase, and half the block work of the full
+// matrix. The products are contracted into FMAs in one fixed form
+// (rot_lo_fma, rot_hi_fma) that the block threads and the rotation lanes
+// share, so a lane's inputs are the bits that the blocks write. Since the
+// plain version rotates the full, not exactly symmetric, A, the route
+// cannot return its bits: it is held within 1e-4 of max|w| of it.
+//
+// n is a run-time argument (kPacked): the kernel is instantiated per 2x2
+// blocks per block thread (kPer, 1 to 8), and each thread keeps its
+// blocks' source, rotation and destination offsets in registers, two
+// 16-bit offsets to a register (at n = 238, 8 blocks a thread in a CTA of
+// 1,024 threads, 64 registers each). For the spectral tuner's n = 192 the
+// same kernel is instantiated with n and the thread split as constants
+// (kFixedN): 6.0% less device time there, 2.1125 against 2.2463 ms at
+// (12, 192, 192) and sweeps 9 on an H100, where the kVtShared-style loop
+// it replaces took 7.0055 ms (PERF.md §6,
+// basd_tpu_torch/tools/time_jacobi.py). One step at n = 192 is 392
+// instructions per warp: 52 shared loads, 25 stores, one barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxNPacked = 238;
+constexpr int kPackedMaxThreads = 1024;
+constexpr int kPackedMaxPer = 8;
+
+// c x - s y and s x + c y, each one FMUL and one FFMA in this fixed form,
+// so that rot_hi_fma(c, s, x, y) == rot_lo_fma(c, -s, y, x) bit for bit
+__device__ __forceinline__ float rot_lo_fma(float c, float s, float x, float y) {
+  return __fmaf_rn(c, x, -__fmul_rn(s, y));
+}
+__device__ __forceinline__ float rot_hi_fma(float c, float s, float x, float y) {
+  return __fmaf_rn(c, y, __fmul_rn(s, x));
+}
+
+// the launch shape of the packed route at even n
+struct PackedShape {
+  int h, m, buf, block_threads, threads, per;
+  size_t smem;
+};
+
+__host__ __device__ constexpr PackedShape packed_shape(int n) {
+  PackedShape p{};
+  p.h = n / 2;
+  p.m = p.h * (p.h + 1) / 2;
+  p.buf = 4 * p.m + 4;  // four planes and the dummy slot, 16 B aligned
+  const int rot_threads = 32 * ((p.h + 31) / 32);
+  const int max_block_threads = kPackedMaxThreads - rot_threads;
+  p.per = (p.m + max_block_threads - 1) / max_block_threads;
+  p.block_threads = ((p.m + p.per - 1) / p.per + 31) / 32 * 32;
+  p.threads = p.block_threads + rot_threads;
+  // two buffers, then the rotations (c, s) of two steps
+  p.smem = sizeof(float) * (2 * (size_t)p.buf + 4 * (size_t)p.h);
+  return p;
+}
+
+// block (R, C), R <= C, in row-major order of the upper triangle
+__device__ __forceinline__ int packed_block(int r, int c, int h) {
+  return r * h - r * (r - 1) / 2 + c - r;
+}
+
+// the canonical slot of entry (p, q), either order
+__device__ __forceinline__ int packed_slot(int p, int q, int h, int m) {
+  int r = p < h ? p : p - h, c = q < h ? q : q - h;
+  if (r > c || (r == c && p > q)) {
+    const int t = p; p = q; q = t;
+    const int u = r; r = c; c = u;
+  }
+  return (2 * (p >= h) + (q >= h)) * m + packed_block(r, c, h);
+}
+
+// the slot read for (plane (i, j)) of block (r, c): a diagonal block's BL
+// is its TR
+__device__ __forceinline__ int packed_read(int r, int c, int i, int j, int h, int m) {
+  const int plane = (r == c && i == 1 && j == 0) ? 1 : 2 * i + j;
+  return plane * m + packed_block(r, c, h);
+}
+
+template <int kPer>
+__device__ __forceinline__ void packed_block_step(
+    const float* __restrict__ A, const float2* __restrict__ cs, float* __restrict__ An,
+    int m, const unsigned (&src)[kPer], const unsigned (&rc)[kPer],
+    const unsigned (&d01)[kPer], const unsigned (&d23)[kPer]) {
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    if (src[j] == ~0u) continue;
+    const int b = src[j] & 0xffff, bl = src[j] >> 16;
+    const float a00 = A[b], a01 = A[m + b], a10 = A[bl], a11 = A[3 * m + b];
+    const float2 r = cs[rc[j] & 0xffff], c = cs[rc[j] >> 16];
+    // rows first (apply_rows), then columns (apply_cols)
+    const float t0 = rot_lo_fma(r.x, r.y, a00, a10), t1 = rot_lo_fma(r.x, r.y, a01, a11);
+    const float b0 = rot_hi_fma(r.x, r.y, a00, a10), b1 = rot_hi_fma(r.x, r.y, a01, a11);
+    An[d01[j] & 0xffff] = rot_lo_fma(c.x, c.y, t0, t1);
+    An[d01[j] >> 16] = rot_hi_fma(c.x, c.y, t0, t1);
+    An[d23[j] & 0xffff] = rot_lo_fma(c.x, c.y, b0, b1);
+    An[d23[j] >> 16] = rot_hi_fma(c.x, c.y, b0, b1);
+  }
+}
+
+// A rotation lane's part of one step: pair k's next rotation from the
+// three canonical entries that land on its a_kk, a_{k+h,k+h}, a_{k,k+h}.
+// Entry e is plane (i, j) of block (R, C); ea[e] holds the slots of planes
+// (i, j), (1 - i, j), (i, 1 - j), (1 - i, 1 - j), its rows take pair
+// er[e]'s rotation with s times gr (-1 for i = 1) and its columns pair
+// ec[e]'s with s times gc (-1 for j = 1): a bottom row or right column
+// taken as the top or left one with the operands swapped, which gives the
+// block threads' bits (rot_hi_fma(c, s, x, y) == rot_lo_fma(c, -s, y, x)).
+__device__ __forceinline__ void packed_rotation_step(
+    const float* __restrict__ A, const float2* __restrict__ cs, float2* __restrict__ csn,
+    int k, int h, const int (&ea)[3][4], const int (&er)[3], const int (&ec)[3],
+    const float (&gr)[3], const float (&gc)[3]) {
+  float in[3][4];
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) in[e][q] = A[ea[e][q]];
+  float x[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float2 r = cs[er[e]], c = cs[ec[e]];
+    const float sr = gr[e] * r.y, sc = gc[e] * c.y;
+    x[e] = rot_lo_fma(c.x, sc, rot_lo_fma(r.x, sr, in[e][0], in[e][1]),
+                      rot_lo_fma(r.x, sr, in[e][2], in[e][3]));
+  }
+  float c, s;
+  pair_rotation(x[0], x[1], x[2], c, s);
+  if (k < h) csn[k] = make_float2(c, s);
+}
+
+// Shared memory: buffers A0, A1 (4 planes of m floats and a dummy slot
+// each), then the rotations CS0, CS1 (h float2 each). Block thread
+// t < block_threads takes the blocks t + j * block_threads, j < kPer;
+// rotation lane k < h computes pair k's rotation a step ahead. kN > 0
+// makes n and the thread split compile-time constants (kFixedN).
+template <int kPer, int kN = 0>
+__global__ void __launch_bounds__(kPackedMaxThreads)
+jacobi_packed_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
+                     int n, int steps, int block_threads) {
+  if constexpr (kN != 0) {
+    n = kN;
+    block_threads = packed_shape(kN).block_threads;
+  }
+  extern __shared__ __align__(16) float packed_smem[];
+  const int h = n / 2, m = h * (h + 1) / 2, buf = 4 * m + 4;
+  float* A0 = packed_smem;
+  float* A1 = packed_smem + buf;
+  float2* CS0 = reinterpret_cast<float2*>(packed_smem + 2 * buf);
+  float2* CS1 = CS0 + h;
+  const long long base = (long long)blockIdx.x * n * n;
+  const int tid = threadIdx.x;
+  const bool rot = tid >= block_threads;  // whole warps
+
+  // A's canonical entries into the packed buffer 0 (the wrapper passes
+  // a symmetric A)
+  for (int i = tid; i < n * n; i += blockDim.x) {
+    const int p = i / n, q = i - p * n;
+    const int r = p < h ? p : p - h, c = q < h ? q : q - h;
+    if (r < c || (r == c && p <= q)) A0[packed_slot(p, q, h, m)] = a_in[base + i];
+  }
+
+  // a block thread's blocks: the slots it reads (TL's block index, and its
+  // BL's slot), its row and column pairs (the rotations' indices), and the
+  // slots of the next buffer that its four rotated entries go to
+  unsigned src[kPer], rc[kPer], d01[kPer], d23[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int idx = tid + j * block_threads;
+    src[j] = ~0u;
+    rc[j] = d01[j] = d23[j] = 0;
+    if (rot || idx >= m) continue;
+    int r = 0, start = 0;
+    while (idx >= start + h - r) start += h - r++;
+    const int c = r + idx - start;
+    src[j] = (unsigned)idx | (unsigned)packed_read(r, c, 1, 0, h, m) << 16;
+    rc[j] = (unsigned)r | (unsigned)c << 16;
+    unsigned d[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = q / 2, jj = q % 2;
+      d[q] = (r == c && i == 1 && jj == 0)
+                 ? 4 * m  // the dummy slot
+                 : packed_slot(halfshift_dst(r + i * h, n), halfshift_dst(c + jj * h, n), h, m);
+    }
+    d01[j] = d[0] | d[1] << 16;
+    d23[j] = d[2] | d[3] << 16;
+  }
+  // a rotation lane's pair k (clamped into the grid): the positions
+  // p1 = src(k), p2 = src(k + h) whose rotated entries land on its next
+  // a_kk, a_{k+h,k+h} and a_{k,k+h}, each entry's canonical block and plane
+  const int k = rot ? tid - block_threads : 0;
+  const int kk = k < h ? k : 0;
+  int ea[3][4], er[3], ec[3];
+  float gr[3], gc[3];
+  {
+    const int p1 = halfshift_src(kk, n), p2 = halfshift_src(kk + h, n);
+    const int ps[3] = {p1, p2, p1}, qs[3] = {p1, p2, p2};
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      int p = ps[e], q = qs[e];
+      int r = p < h ? p : p - h, c = q < h ? q : q - h;
+      if (r > c || (r == c && p > q)) {
+        const int t = p; p = q; q = t;
+        const int u = r; r = c; c = u;
+      }
+      const int i = p >= h, j = q >= h;
+      ea[e][0] = packed_read(r, c, i, j, h, m);
+      ea[e][1] = packed_read(r, c, 1 - i, j, h, m);
+      ea[e][2] = packed_read(r, c, i, 1 - j, h, m);
+      ea[e][3] = packed_read(r, c, 1 - i, 1 - j, h, m);
+      er[e] = r;
+      ec[e] = c;
+      gr[e] = i ? -1.f : 1.f;
+      gc[e] = j ? -1.f : 1.f;
+    }
+  }
+  if (rot) {  // the first step's rotations, from the input
+    float c, s;
+    pair_rotation(a_in[base + kk * (n + 1)], a_in[base + (kk + h) * (n + 1)],
+                  a_in[base + kk * n + kk + h], c, s);
+    if (k < h) CS0[k] = make_float2(c, s);
+  }
+  __syncthreads();
+
+  for (int step = 0; step + 1 < steps; step += 2) {
+    if (rot) packed_rotation_step(A0, CS0, CS1, k, h, ea, er, ec, gr, gc);
+    else packed_block_step<kPer>(A0, CS0, A1, m, src, rc, d01, d23);
+    __syncthreads();
+    if (rot) packed_rotation_step(A1, CS1, CS0, k, h, ea, er, ec, gr, gc);
+    else packed_block_step<kPer>(A1, CS1, A0, m, src, rc, d01, d23);
+    __syncthreads();
+  }
+  if (steps % 2) {
+    if (!rot) packed_block_step<kPer>(A0, CS0, A1, m, src, rc, d01, d23);
+    __syncthreads();
+  }
+
+  // the diagonal: a_ii is TL (i < h) or BR (i >= h) of the block (i mod h)
+  const float* A = steps % 2 ? A1 : A0;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int r = i < h ? i : i - h;
+    w_out[(long long)blockIdx.x * n + i] = A[(i < h ? 0 : 3 * m) + packed_block(r, r, h)];
+  }
+}
+
+template <int kPer>
+int launch_packed_at(const void* a, void* w, int batch, int n, int steps,
+                     const PackedShape& p, void* stream) {
+  if (p.per != kPer) {
+    if constexpr (kPer < kPackedMaxPer)
+      return launch_packed_at<kPer + 1>(a, w, batch, n, steps, p, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_packed_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  jacobi_packed_kernel<kPer><<<batch, p.threads, p.smem, (cudaStream_t)stream>>>(
+      (const float*)a, (float*)w, n, steps, p.block_threads);
+  return (int)cudaGetLastError();
+}
+
+// the kFixedN route at n = kN
+template <int kN>
+int launch_packed_fixed(const void* a, void* w, int batch, int steps, void* stream) {
+  constexpr PackedShape p = packed_shape(kN);
+  static_assert(p.smem <= kMaxSharedBytes && p.per <= kPackedMaxPer, "kFixedN shape");
+  const cudaError_t err = cudaFuncSetAttribute(
+      jacobi_packed_kernel<p.per, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  jacobi_packed_kernel<p.per, kN><<<batch, p.threads, p.smem, (cudaStream_t)stream>>>(
+      (const float*)a, (float*)w, kN, steps, p.block_threads);
+  return (int)cudaGetLastError();
+}
+
+int launch_packed(const void* a, void* w, int batch, int n, int steps, void* stream) {
+  if (n < 4 || n > kMaxNPacked || n % 2 != 0 || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  const PackedShape p = packed_shape(n);
+  if (p.smem > kMaxSharedBytes || p.threads > kPackedMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  return launch_packed_at<1>(a, w, batch, n, steps, p, stream);
 }
 
 }  // namespace
@@ -528,8 +843,17 @@ extern "C" int basd_jacobi_eigh(const void* a, void* w, void* vt,
   return launch<kVtGlobal>(a, w, vt, scratch, batch, n, steps, stream);
 }
 
-// K5: eigenvalues only.
-extern "C" int basd_jacobi_eigvals(const void* a, void* w, int batch, int n,
-                                   int steps, void* stream) {
-  return launch<kNoVt>(a, w, nullptr, nullptr, batch, n, steps, stream);
+// K5, eigenvalues only: the kPacked route at even n <= 238, n at run time.
+extern "C" int basd_jacobi_eigvals_packed(const void* a, void* w, int batch, int n,
+                                          int steps, void* stream) {
+  return launch_packed(a, w, batch, n, steps, stream);
+}
+
+// K5, the kFixedN route: the packed kernel instantiated for one n, the
+// spectral tuner's n = 192 (Table-3's D_s).
+extern "C" int basd_jacobi_eigvals_packed_fixed(const void* a, void* w, int batch,
+                                                int n, int steps, void* stream) {
+  if (batch <= 0) return (int)cudaErrorInvalidValue;
+  if (n == 192) return launch_packed_fixed<192>(a, w, batch, steps, stream);
+  return (int)cudaErrorInvalidValue;
 }

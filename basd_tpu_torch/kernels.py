@@ -44,11 +44,15 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # stream
         "basd_jacobi_eigh": [_P] * 4 + [_I] * 3 + [_P],
         # a, w, batch, n, steps, stream
-        "basd_jacobi_eigvals": [_P] * 2 + [_I] * 3 + [_P],
+        "basd_jacobi_eigvals_packed": [_P] * 2 + [_I] * 3 + [_P],
+        "basd_jacobi_eigvals_packed_fixed": [_P] * 2 + [_I] * 3 + [_P],
     },
     "warp": {
-        # images, out, params, batch, n, channels, stream
-        "basd_warp": [_P] * 3 + [_I] * 3 + [_P],
+        # images, out, params, batch, n, channels, stream: one entry point
+        # per route (ops/warp_kernel.py:warp_route)
+        "basd_warp_cta": [_P] * 3 + [_I] * 3 + [_P],
+        "basd_warp_cluster": [_P] * 3 + [_I] * 3 + [_P],
+        "basd_warp_plane": [_P] * 3 + [_I] * 3 + [_P],
     },
     "attn_probe": {
         # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream

@@ -26,9 +26,31 @@ from basd_tpu_torch import kernels
 _PAETH_MAX = math.tan(math.pi / 8.0)  # residual rotation |psi_r| <= 45 deg
 _SHEAR_MAX = 0.99
 _TRANS_MAX = 32.0
-# the kernel holds one n x (n + 1) fp32 plane in a CTA's shared memory
-# (227 KB): n <= 240 covers the Table-1 224 px images
+# the kernel holds at least one n x (n + 1) fp32 plane in a CTA's shared
+# memory (227 KB): n <= 240 covers the Table-1 224 px images
 MAX_N = 240
+_MAX_SHARED_BYTES = 232448
+_MAX_CLUSTER = 8  # CTAs in a portable thread-block cluster
+
+
+def plane_ld(n: int) -> int:
+    """The row stride of the kernel's shared-memory planes: odd, so that
+    the column passes hit 32 banks."""
+    return n if n % 2 else n + 1
+
+
+def warp_route(n: int, c: int) -> str:
+    """K4's route for (B, n, n, C) images, the one `_warp_cuda` launches:
+    "cta" (`basd_warp_cta`, one CTA per sample) when the sample's C planes
+    fit one CTA's shared memory (C = 3 to n = 139); else "cluster"
+    (`basd_warp_cluster`, a cluster of C CTAs per sample, one plane each)
+    for C <= 8; else "plane" (`basd_warp_plane`, one CTA per sample and
+    channel)."""
+    if not 1 <= n <= MAX_N or c < 1:
+        raise ValueError(f"warp kernel takes 1 <= n <= {MAX_N}, C >= 1; got n={n}, C={c}")
+    if 4 * c * n * plane_ld(n) <= _MAX_SHARED_BYTES:
+        return "cta"
+    return "cluster" if c <= _MAX_CLUSTER else "plane"
 
 
 def pass_bounds(n: int) -> tuple[int, int, int]:
@@ -97,6 +119,10 @@ def geometric_warp_plain(images: torch.Tensor, params: torch.Tensor) -> torch.Te
     return _shift_axis(out, p(2) * lane, axis=2, max_shift=b3)
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _warp_cuda(images: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """Launch K4 on contiguous fp32 (B, n, n, C) images with (B, 8) params."""
     if images.dtype != torch.float32 or images.ndim != 4:
@@ -115,12 +141,13 @@ def _warp_cuda(images: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
         raise ValueError("warp params must be contiguous fp32 (B, 8) on the "
                          "images' device")
     out = torch.empty_like(images)
-    lib = kernels.library("warp")
-    status = lib.basd_warp(
+    route = warp_route(n, c)
+    launch = getattr(kernels.library("warp"), f"basd_warp_{route}")
+    status = launch(
         images.data_ptr(), out.data_ptr(), params.data_ptr(), b, n, c,
-        torch.cuda.current_stream(images.device).cuda_stream,
+        _stream(images),
     )
-    kernels.check(status, "basd_warp")
+    kernels.check(status, f"warp route {route}")
     kernels.LAUNCHES["warp"] += 1
     return out
 

@@ -195,6 +195,155 @@ def pingpong_step(
     return (a_next, vt_next, *rotations(*pingpong_pair_inputs(a, c, s)))
 
 
+# ---------------------------------------------------------------------------
+# The layout of the Jacobi eigenvalues kernel's packed route (K5, n <= 238):
+# the symmetric A held as its upper block triangle, each entry once, in two
+# buffers; each step writes the rotated entries straight to their next
+# positions, transposed where those fall below the diagonal.
+# ---------------------------------------------------------------------------
+
+
+def packed_blocks(n: int) -> tuple[list[int], list[int]]:
+    """(R, C) of the blocks R <= C of the h x h grid of 2x2 blocks (rows
+    {R, R + h} x columns {C, C + h}), in the kernel's row-major order."""
+    h = n // 2
+    rows = [r for r in range(h) for _ in range(r, h)]
+    cols = [c for r in range(h) for c in range(r, h)]
+    return rows, cols
+
+
+def packed_slot(p: int, q: int, n: int) -> int:
+    """The slot that holds entry (p, q) (either order): plane 2 i + j of
+    m = h (h + 1) / 2 floats, i = (p >= h), j = (q >= h), at the block
+    (pair(p), pair(q)) with pair(p) <= pair(q); in a diagonal block the
+    upper entry (R, R + h), plane TR."""
+    h = n // 2
+    r, c = p % h, q % h
+    if r > c or (r == c and p > q):
+        p, q, r, c = q, p, c, r
+    return (2 * (p >= h) + (q >= h)) * (h * (h + 1) // 2) + r * h - r * (r - 1) // 2 + c - r
+
+
+def packed_positions(n: int) -> tuple[list[int], list[int]]:
+    """(p, q) of each of the 4 m slots, plane by plane (TL, TR, BL, BR):
+    slot 2 i + j of block (R, C) is entry (R + i h, C + j h). A diagonal
+    block's BL slot is (R + h, R), the mirror of its TR, which the kernel
+    never reads (`packed_read_slots`)."""
+    h = n // 2
+    rows, cols = packed_blocks(n)
+    ps, qs = [], []
+    for i, j in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        ps += [r + i * h for r in rows]
+        qs += [c + j * h for c in cols]
+    return ps, qs
+
+
+def packed_read_slots(n: int) -> list[int]:
+    """The slot that the kernel reads for each slot: itself, but a diagonal
+    block's BL is read from its TR."""
+    ps, qs = packed_positions(n)
+    return [packed_slot(p, q, n) for p, q in zip(ps, qs)]
+
+
+def packed_dst(n: int) -> list[int]:
+    """dst[slot]: the slot of the next buffer that the rotated entry of
+    `slot` goes to, the canonical slot of (dst(p), dst(q)); -1 for a
+    diagonal block's BL, which is not written (its canonical slot is its
+    TR's)."""
+    dst = halfshift_dst(n)
+    ps, qs = packed_positions(n)
+    h = n // 2
+    return [-1 if p % h == q % h and p > q else packed_slot(dst[p], dst[q], n)
+            for p, q in zip(ps, qs)]
+
+
+def pack_upper(a: torch.Tensor) -> torch.Tensor:
+    """(B, n, n) -> (B, 4 m): every slot's entry (a diagonal block's BL the
+    entry of its TR, as the kernel reads it)."""
+    n = a.shape[-1]
+    ps, qs = packed_positions(n)
+    read = torch.tensor(packed_read_slots(n), device=a.device)
+    return a[:, torch.tensor(ps, device=a.device), torch.tensor(qs, device=a.device)][:, read]
+
+
+def packed_diag(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The diagonal of a packed A: a_ii from TL (i < h) or BR of block (i mod h)."""
+    return x[:, torch.tensor([packed_slot(i, i, n) for i in range(n)], device=x.device)]
+
+
+def _packed_rot(c, s, x, y):
+    """c x - s y as the packed route's mirror rounds it; s x + c y is
+    _packed_rot(c, -s, y, x), bit for bit."""
+    return c * x - s * y
+
+
+def packed_pair_inputs(
+    x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each pair k's next a_kk, a_{k+h,k+h} and a_{k,k+h}, each (B, h), as
+    the packed route's rotation lanes compute them from this step's packed
+    A and rotations (c, s): the canonical entry of (src(k), src(k)),
+    (src(k + h), src(k + h)) and (src(k), src(k + h)), plane (i, j) of its
+    block, rotated from the block's four slots with the row pair's s times
+    -1 for a bottom row and the column pair's for a right column."""
+    h = c.shape[-1]
+    n = 2 * h
+    src = halfshift_src(n)
+    read = packed_read_slots(n)
+    p1, p2 = src[:h], src[h:]
+
+    def entry(ps, qs):
+        slots, rows, cols, gr, gc = [[], [], [], []], [], [], [], []
+        for p, q in zip(ps, qs):
+            if p % h > q % h or (p % h == q % h and p > q):
+                p, q = q, p
+            i, j = p // h, q // h
+            row, col = p % h, q % h
+            for k, (u, v) in enumerate(((i, j), (1 - i, j), (i, 1 - j), (1 - i, 1 - j))):
+                slots[k].append(read[packed_slot(row + u * h, col + v * h, n)])
+            rows.append(row)
+            cols.append(col)
+            gr.append(-1.0 if i else 1.0)
+            gc.append(-1.0 if j else 1.0)
+        t = lambda v: torch.tensor(v, device=x.device)
+        ins = [x[:, t(sl)] for sl in slots]
+        rows, cols = t(rows), t(cols)
+        sr, sc = s[:, rows] * t(gr), s[:, cols] * t(gc)
+        cr, cc = c[:, rows], c[:, cols]
+        return _packed_rot(cc, sc, _packed_rot(cr, sr, ins[0], ins[1]),
+                           _packed_rot(cr, sr, ins[2], ins[3]))
+
+    return entry(p1, p1), entry(p2, p2), entry(p1, p2)
+
+
+def packed_step(
+    x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One step of the packed route on a packed A (B, 4 m) with the step's
+    rotations (c, s), each (B, h): every block (R, C) rotated, rows by pair
+    R and columns by pair C (`jacobi_step`'s formula, from the slots the
+    kernel reads), and each rotated entry scattered to `packed_dst`; a
+    diagonal block's BL slot then holds its TR, as the kernel reads it
+    (`pack_upper`'s layout). Returns the next packed A and the
+    next rotations from `packed_pair_inputs`. On a symmetric A the written
+    slots hold the bits of `jacobi_step`'s entries there."""
+    h = c.shape[-1]
+    n, m = 2 * h, h * (h + 1) // 2
+    rows, cols = (torch.tensor(v, device=x.device) for v in packed_blocks(n))
+    a00, a01, a10, a11 = (x[:, q * m:(q + 1) * m] for q in range(4))
+    cr, sr, cc, sc = c[:, rows], s[:, rows], c[:, cols], s[:, cols]
+    t0, t1 = _packed_rot(cr, sr, a00, a10), _packed_rot(cr, sr, a01, a11)
+    b0, b1 = _packed_rot(cr, -sr, a10, a00), _packed_rot(cr, -sr, a11, a01)
+    vals = torch.cat([_packed_rot(cc, sc, t0, t1), _packed_rot(cc, -sc, t1, t0),
+                      _packed_rot(cc, sc, b0, b1), _packed_rot(cc, -sc, b1, b0)], dim=1)
+    dst = torch.tensor(packed_dst(n), device=x.device)
+    keep = dst >= 0
+    nxt = torch.zeros_like(x)
+    nxt[:, dst[keep]] = vals[:, keep]
+    nxt = nxt[:, torch.tensor(packed_read_slots(n), device=x.device)]
+    return (nxt, *rotations(*packed_pair_inputs(x, c, s)))
+
+
 def _sort_desc(
     w: torch.Tensor, v: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -24,10 +24,15 @@ from basd_tpu_torch.spectral import jacobi
 # fit): to n = 96, the selector's gate, A and V^T in two ping-pong buffers
 # each (four padded n x n fp32 buffers in one CTA's 227 KB of shared
 # memory); to n = 168, A and V^T in place (2 n^2); above that V^T in a
-# device-memory scratch. A alone fits up to n = 238.
+# device-memory scratch. K5's route holds A alone as its upper block
+# triangle in two buffers, which fit up to n = 238.
 MAX_N_PINGPONG = 96
 MAX_N_SHARED_VT = 168
 MAX_N = 238
+# the n at which K5 has an instantiation of its own (n and the thread split
+# compile-time constants): the spectral tuner's D_s = 192, where it took
+# 6% less device time than n at run time (PERF.md §6)
+EIGVALS_FIXED_N = (192,)
 
 
 def eigh_route(n: int) -> str:
@@ -37,6 +42,17 @@ def eigh_route(n: int) -> str:
     if n <= MAX_N_PINGPONG:
         return "pingpong"
     return "vt_shared" if n <= MAX_N_SHARED_VT else "vt_global"
+
+
+def eigvals_route(n: int) -> str:
+    """K5's route at even 4 <= n <= 238, the one `_jacobi_eigvals_raw_cuda`
+    launches; both hold A's upper block triangle in two shared-memory
+    buffers: "packed_fixed" (`basd_jacobi_eigvals_packed_fixed`, an
+    instantiation for that n) at the n of `EIGVALS_FIXED_N`, else "packed"
+    (`basd_jacobi_eigvals_packed`, n at run time)."""
+    if n % 2 or not 4 <= n <= MAX_N:
+        raise ValueError(f"jacobi eigenvalues kernel takes even 4 <= n <= {MAX_N}, got {n}")
+    return "packed_fixed" if n in EIGVALS_FIXED_N else "packed"
 
 
 def _check(a: torch.Tensor) -> tuple[int, int]:
@@ -84,10 +100,11 @@ def _jacobi_eigvals_raw_cuda(a: torch.Tensor, sweeps: int) -> torch.Tensor:
     b, n = _check(a)
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     lib = kernels.library("jacobi_eigh")
-    status = lib.basd_jacobi_eigvals(
+    route = eigvals_route(n)
+    status = getattr(lib, f"basd_jacobi_eigvals_{route}")(
         a.data_ptr(), w.data_ptr(), b, n, (n - 1) * sweeps, _stream(a)
     )
-    kernels.check(status, "basd_jacobi_eigvals")
+    kernels.check(status, f"jacobi_eigvals route {route}")
     kernels.LAUNCHES["jacobi_eigvals"] += 1
     return w
 

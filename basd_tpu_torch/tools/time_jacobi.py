@@ -34,11 +34,7 @@ import numpy as np
 import torch
 
 from basd_tpu_torch import kernels
-from basd_tpu_torch.spectral.jacobi_kernel import (
-    _jacobi_eigvals_raw_cuda,
-    _jacobi_raw_cuda,
-    eigh_route,
-)
+from basd_tpu_torch.spectral import jacobi_kernel
 from basd_tpu_torch.tools.timing import kernel_ms
 
 # (kernel, batch, n, sweeps)
@@ -60,7 +56,11 @@ def main(*, readings: int = 7, seed: int = 0) -> dict:
         _, b, n, _ = shape
         x = rng.standard_normal((b, n, n)).astype(np.float32)
         inputs[shape] = torch.from_numpy(x @ x.transpose(0, 2, 1) / n).to(dev)
-    raw = {"jacobi_eigh": _jacobi_raw_cuda, "jacobi_eigvals": _jacobi_eigvals_raw_cuda}
+    raw = {"jacobi_eigh": jacobi_kernel._jacobi_raw_cuda,
+           "jacobi_eigvals": jacobi_kernel._jacobi_eigvals_raw_cuda}
+    # a checkout without eigvals_route runs K5's one kernel
+    route_of = {"jacobi_eigh": jacobi_kernel.eigh_route,
+                "jacobi_eigvals": getattr(jacobi_kernel, "eigvals_route", lambda n: "single")}
     times = {shape: [] for shape in inputs}
     for _ in range(readings):
         for (name, b, n, sweeps), a in inputs.items():
@@ -70,7 +70,7 @@ def main(*, readings: int = 7, seed: int = 0) -> dict:
     for (name, b, n, sweeps), t in times.items():
         ms = float(np.median(t))
         rows[f"{name} ({b}, {n}, {n}) sweeps {sweeps}"] = dict(
-            route=eigh_route(n) if name == "jacobi_eigh" else "a_only",
+            route=route_of[name](n),
             readings=t, ms=ms, us_per_step=ms * 1e3 / ((n - 1) * sweeps))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the exit code is not 0:
   2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once); the HMMA (tensor-core)
      instructions in each bf16 attention kernel's SASS (cuobjdump), none
-     allowed to have none;
+     allowed to have none; the instruction mix of one rotation step of K3
+     at n = 48 and of K5 at n = 192;
   3. staging: the Table-3 models at full width (DeiT-Tiny/4 student at
      32 px, DINOv2 ViT-B/14 teacher, bf16, random weights from seeds,
      batch 128) and the calibrated subspace K;
@@ -23,14 +24,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      Grams and at every even n of its ping-pong route (4..96, there bit
      for bit), and through its shared-memory position-map route at
      (4, 128, 128) and (3, 167, 167), each case printed with its route;
+     K4 bit for bit at the main path's (128, 32, 32, 3), the reference
+     default's (256, 224, 224, 3) (both also by device time alone) and at
+     each route's edges, each case printed with its route;
      K5 on the spectral tuner's own (12, 192, 192) token covariances and
-     at an odd n (191);
+     at an odd n (191), both also by device time alone, and at the
+     smallest and largest n of each route (4, 192, 238);
      K3 at (48, 192, 192), its device-memory V^T route, on the sweeps
      probe's two spectrum families; K6 in all six variants at the
      teacher's attention shape (256, 12, 257, 64), with K1 checked on the
-     same q, k, v. At these tool shapes the kernels' own times (K5, K3 at
-     n = 192, K6 and K1 beside it) are the tools' readings in phase 5b,
-     and the tuner reuses the features staged here;
+     same q, k, v. At these tool shapes the kernels' event-loop times (K5,
+     K3 at n = 192, K6 and K1 beside it) are the tools' readings in phase
+     5b, and the tuner reuses the features staged here;
   5. main path: a short `make_train_step(augment=False)` run, then train
      steps of `make_train_step(augment=True)` (bench.py's step), each with
      the kernels' launch counters reset just before and read just after;
@@ -42,7 +47,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared;
   7. profile: one main-path step under torch.profiler, device time by
-     kernel and host time by stage;
+     kernel and host time by stage, and K4's device time from phase 4
+     (the profiler records no launch of it);
 then a JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}} last.
 """
@@ -50,7 +56,6 @@ result line {"ok": true, "device": {...}} last.
 from __future__ import annotations
 
 import json
-import math
 import re
 import subprocess
 import sys
@@ -98,14 +103,17 @@ def main() -> int:
     from basd_tpu_torch.spectral import jacobi
     from basd_tpu_torch.ops import attn_probe
     from basd_tpu_torch.spectral.jacobi_kernel import (
+        _jacobi_eigvals_raw_cuda,
         _jacobi_raw_cuda,
         eigh_route,
+        eigvals_route,
         kernel_jacobi_eigh,
         kernel_jacobi_eigvals,
     )
     from basd_tpu_torch.tools import (
         probe_attn_internals,
         probe_jacobi_sweeps,
+        time_warp,
         tune_spectral,
     )
     from basd_tpu_torch.tools.timing import (
@@ -164,28 +172,34 @@ def main() -> int:
     if len(hmma) != 3 * 8 or min(hmma.values()) == 0:
         raise AssertionError(f"bf16 attention kernels without HMMA: {hmma}")
     print(f"sass: HMMA instructions per bf16 attention kernel {hmma}")
-    # the machine code of one rotation step of K3's ping-pong route at n = 48
-    # (the main path's): the instructions between the loop's first and
-    # second step barriers (barrier 0), the block threads' and the rotation
-    # lanes' code both, the IEEE division's and square root's branches to
-    # their slow paths included (taken only on special operands)
-    pp_fn = "jacobi_pingpong_kernel<48>"
-    step_ops, fn = [], None
-    for line in kernels.sass("jacobi_eigh").splitlines():
-        if "Function :" in line:
-            fn = "jacobi_pingpong_kernelILi48E" in line
-        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            step_ops.append(line.split("*/", 1)[1].strip())
-    bars = [i for i, op in enumerate(step_ops)
-            if re.match(r"BAR\.SYNC\S* 0x0\s*;", op)]
-    if len(bars) < 3:
-        raise AssertionError(f"{pp_fn}: barriers at {bars}")
-    one_step = step_ops[bars[1] + 1:bars[2] + 1]
-    mix = {k: sum(k in op for op in one_step) for k in
-           ("MUFU", "FFMA", "FMUL", "FADD", "IADD", "LDS", "STS", "SHFL", "CALL",
-            "BAR")}
-    print(f"sass: {pp_fn} one rotation step: {len(one_step)} "
-          f"instructions per warp ({mix})")
+    # the machine code of one rotation step: the instructions between the
+    # loop's first and second step barriers (barrier 0), the block threads'
+    # and the rotation lanes' code both, the IEEE division's and square
+    # root's branches to their slow paths included (taken only on special
+    # operands); K3's ping-pong route at n = 48 (the main path's) and K5's
+    # packed route at n = 192 (the spectral tuner's)
+    jacobi_sass = kernels.sass("jacobi_eigh").splitlines()
+
+    def step_mix(fn_name, mangled):
+        step_ops, fn = [], None
+        for line in jacobi_sass:
+            if "Function :" in line:
+                fn = mangled in line
+            elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+                step_ops.append(line.split("*/", 1)[1].strip())
+        bars = [i for i, op in enumerate(step_ops)
+                if re.match(r"BAR\.SYNC\S* 0x0\s*;", op)]
+        if len(bars) < 3:
+            raise AssertionError(f"{fn_name}: barriers at {bars}")
+        one_step = step_ops[bars[1] + 1:bars[2] + 1]
+        mix = {k: sum(k in op for op in one_step) for k in
+               ("MUFU", "FFMA", "FMUL", "FADD", "IADD", "LDS", "STS", "SHFL", "CALL",
+                "BAR")}
+        print(f"sass: {fn_name} one rotation step: {len(one_step)} "
+              f"instructions per warp ({mix})")
+
+    step_mix("jacobi_pingpong_kernel<48>", "jacobi_pingpong_kernelILi48E")
+    step_mix("jacobi_packed_kernel<6, 192>", "jacobi_packed_kernelILi6ELi192E")
 
     # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
     img, batch, num_classes, patch = 32, 128, 100, 4
@@ -529,29 +543,19 @@ def main() -> int:
               f"LAPACK {eig_err:.3g}{timing}")
 
     # K4 on fp32 (B, n, n, C) images with rows that cover every geometric
-    # op at its extremes (shear +-0.99, translate +-32, rotate +-135 and
-    # +-45 degrees, exact quarter turns), a fractional translation and
-    # identity, each with and without the hflip. Tolerance 1e-5; rows
-    # without shear, translation or residual rotation (identity and exact
-    # quarter turns) are permutations and must be bit-identical. The
+    # op at its extremes (`time_warp.edge_ops`: shear +-0.99, translate
+    # +-32, rotate +-135 and +-45 degrees, exact quarter turns), a
+    # fractional translation and identity, each with and without the hflip:
+    # every route rounds as the plain version's torch ops, so every row is
+    # bit-identical to it, and identity parameters give the input. The
     # quarter-turn picked on the card must be the CPU's (the +-135 degree
-    # tie of angle / (pi/2)).
-    warp_ops = [("angle", 0.0)]
-    for v in (0.99, -0.99):
-        warp_ops += [("shear_x", v), ("shear_y", v)]
-    for v in (32.0, -32.0, 3.7):
-        warp_ops += [("trans_x", v), ("trans_y", v)]
-    warp_ops += [("angle", d) for d in (135, -135, 45, -45, 30, 90, 180, -90, 270)]
-    warp_names = ("angle", "shear_x", "shear_y", "trans_x", "trans_y")
+    # tie of angle / (pi/2)). Each case prints its route (`warp_route`).
+    warp_ops = time_warp.edge_ops()
 
     def warp_check(b, n, c, ops):
-        vals = {k: torch.zeros(b) for k in warp_names}
-        flip = torch.arange(b) % 2 == 1
-        for i in range(b):
-            kind, v = ops[(i // 2) % len(ops)]
-            vals[kind][i] = v * math.pi / 180 if kind == "angle" else v
-        p_cpu = wk.warp_params(*(vals[k] for k in warp_names), flip)
-        params = wk.warp_params(*(vals[k].to(dev) for k in warp_names), flip.to(dev))
+        vals, flip = time_warp.edge_mix(b, ops)
+        p_cpu = wk.warp_params(*vals, flip)
+        params = wk.warp_params(*(v.to(dev) for v in vals), flip.to(dev))
         if not torch.equal(params[:, 5].cpu(), p_cpu[:, 5]):
             raise AssertionError(f"warp quarter-turns: card {params[:, 5].tolist()} "
                                  f"cpu {p_cpu[:, 5].tolist()}")
@@ -561,41 +565,49 @@ def main() -> int:
         z = torch.zeros(b, device=dev)
         ident = wk._warp_cuda(x, wk.warp_params(z, z, z, z, z))
         torch.cuda.synchronize()
-        err = (got - want).abs().amax(dim=(1, 2, 3))
-        exact = (params[:, :5] == 0).all(dim=1)
-        turns = int((exact & (params[:, 5] != 0)).sum())
-        if not (err.max().item() <= 1e-5 and (err[exact] == 0).all()
-                and torch.equal(ident, x)):
+        route = wk.warp_route(n, c)
+        err = (got - want).abs().max().item()
+        turns = int(((params[:, :5] == 0).all(dim=1) & (params[:, 5] != 0)).sum())
+        if not (torch.equal(got, want) and torch.equal(ident, x)):
             raise AssertionError(
-                f"warp {(b, n, n, c)}: max err {err.max().item()} (tol 1e-5), "
-                f"exact rows {err[exact].tolist()}, identity exact "
-                f"{torch.equal(ident, x)}")
+                f"warp {(b, n, n, c)} route {route}: max err {err} (bit-identical "
+                f"required), identity exact {torch.equal(ident, x)}")
         bnd, by = bound(2 * x.numel() * 4, 9 * x.numel(), f32)
-        print(f"kernel warp {(b, n, n, c)}: max err {err.max().item():.3g} "
-              f"(tol 1e-5); {int(exact.sum())} permutation rows ({turns} "
-              f"quarter-turns) and identity bit-identical")
-        return x, params, dict(max_abs_err=err.max().item(), bound_ms=bnd,
-                               bound_by=by, library_ms=None)
+        print(f"kernel warp {(b, n, n, c)} route {route}: bit-identical to the plain "
+              f"version ({b} rows, {turns} exact quarter-turns) and identity exact")
+        return x, params, dict(max_abs_err=err, route=route, bound_ms=bnd, bound_by=by,
+                               library_ms=None)
 
-    x, params, row = warp_check(batch, img, 3, warp_ops)
-    row.update(ms=timed_ms(lambda: wk._warp_cuda(x, params), 200),
-               plain_ms=timed_ms(lambda: wk.geometric_warp_plain(x, params), 5))
-    report["warp"] = {f"main path {(batch, img, img, 3)}": row}
-    print(f"kernel warp {(batch, img, img, 3)}: ms {row['ms']:.4f} plain "
-          f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']}); "
-          "no PyTorch call computes the same three-shear warp")
+    report["warp"] = {}
+    for label, b, n in (("main path", batch, img), ("reference default", 256, 224)):
+        x, params, row = warp_check(b, n, 3, warp_ops)
+        small = n == img
+        row.update(ms=timed_ms(lambda: wk._warp_cuda(x, params), 200 if small else 20),
+                   device_ms=kernel_ms(lambda: wk._warp_cuda(x, params), dev),
+                   plain_ms=timed_ms(lambda: wk.geometric_warp_plain(x, params),
+                                     5 if small else 1))
+        report["warp"][f"{label} {(b, n, n, 3)}"] = row
+        print(f"kernel warp {label} {(b, n, n, 3)} route {row['route']}: ms "
+              f"{row['ms']:.4f} (device {row['device_ms']:.5f}) plain "
+              f"{row['plain_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']}); "
+              "no PyTorch call computes the same three-shear warp")
+        del x, params
     pick = lambda *keys: [op for op in warp_ops if op in keys]
+    full = 2 * len(warp_ops)
     edges = [(4, 224, 3, pick(("shear_x", 0.99), ("angle", 135))),
              (4, 224, 3, pick(("trans_y", -32.0), ("angle", -45))),
-             (2 * len(warp_ops), 96, 3, warp_ops),
-             (2 * len(warp_ops), 33, 3, warp_ops),
-             (2 * len(warp_ops), 7, 1, warp_ops),
-             (4, 1, 3, warp_ops),
-             (2, 240, 1, pick(("angle", 90)))]
+             (full, 96, 3, warp_ops), (full, 33, 3, warp_ops), (full, 7, 1, warp_ops),
+             (4, 1, 3, warp_ops), (2, 240, 1, pick(("angle", 90))),
+             # each route's edges: one CTA per sample to n = 139 at C = 3; a
+             # cluster above, with 16-byte DSMEM moves where n % 4 == 0 and
+             # the aligned rows fit (140, 236), 4-byte ones at odd n and at
+             # n = 240 (141, 240 with C = 8, the largest cluster); one CTA per
+             # sample and channel beyond 8 channels
+             (full, 139, 3, warp_ops), (full, 140, 3, warp_ops),
+             (full, 141, 3, warp_ops), (full, 236, 3, warp_ops),
+             (full, 240, 8, warp_ops), (full, 200, 9, warp_ops)]
     for b, n, c, ops in edges:
-        x, params, row = warp_check(b, n, c, ops)
-        if n == 224:
-            row.update(ms=timed_ms(lambda: wk._warp_cuda(x, params), 50))
+        _, _, row = warp_check(b, n, c, ops)
         report["warp"][f"edge {(b, n, n, c)} {ops[0][0]}"] = row
 
     # ---- slice 3: the tool paths' kernels (K5, K3 at n = 192, K6) ----
@@ -637,20 +649,47 @@ def main() -> int:
         eig3_err = ((w3.double() - w64).abs().amax(-1) / scale).max().item()
         ranks = tune_spectral.mp_ranks(w.double().cpu().numpy(), m_tok)
         ranks64 = tune_spectral.mp_ranks(w64.cpu().numpy(), m_tok)
+        route = eigvals_route(nn_ + nn_ % 2)
         if not (plain_rel <= 1e-4 and (ranks == ranks64).all()):
             raise AssertionError(
-                f"jacobi_eigvals {what} {(bsz, nn_, nn_)}: vs plain {plain_rel} "
-                f"(tol 1e-4), MP ranks {ranks.tolist()} vs LAPACK {ranks64.tolist()}")
+                f"jacobi_eigvals {what} {(bsz, nn_, nn_)} route {route}: vs plain "
+                f"{plain_rel} (tol 1e-4), MP ranks {ranks.tolist()} vs LAPACK "
+                f"{ranks64.tolist()}")
+        a_even = jacobi.symmetrize_pad(a)[0].contiguous()
         row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
                    eig_err=eig_err, eig3_err=eig3_err, mp_ranks=ranks.tolist(),
+                   route=route,
+                   device_ms=kernel_ms(lambda: _jacobi_eigvals_raw_cuda(a_even, 9), dev),
                    **eigvals_timing(a, 9, kernel=what == "odd n"))
+        row["us_per_step"] = row["device_ms"] * 1e3 / ((a_even.shape[-1] - 1) * 9)
         report.setdefault("jacobi_eigvals", {})[f"{what} ({bsz}, {nn_}, {nn_})"] = row
         ms = f"{row['ms']:.4f}" if "ms" in row else "(phase 5b)"
-        print(f"kernel jacobi_eigvals {what} {(bsz, nn_, nn_)} sweeps=9: vs plain "
-              f"{plain_rel:.3g} (tol 1e-4); vs LAPACK {eig_err:.3g} (sweeps=3 "
+        print(f"kernel jacobi_eigvals {what} {(bsz, nn_, nn_)} sweeps=9 (route {route}): "
+              f"vs plain {plain_rel:.3g} (tol 1e-4); vs LAPACK {eig_err:.3g} (sweeps=3 "
               f"{eig3_err:.3g}); MP ranks {ranks.tolist()} equal LAPACK's; ms "
-              f"{ms} plain {row['plain_ms']:.4f} linalg.eigvalsh "
+              f"{ms} (device {row['device_ms']:.4f}, {row['us_per_step']:.3f} us per "
+              f"step) plain {row['plain_ms']:.4f} linalg.eigvalsh "
               f"{row['library_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']})")
+    # K5 at the smallest and largest n of each route on random PSD Grams at
+    # sweeps 9: within 1e-4 of max|w| of the plain version (the packed
+    # route rotates the upper block triangle, so it rounds otherwise than
+    # the plain version's full matrix); n = 238 is the largest n whose two
+    # buffers fit a CTA
+    for nn_ in (4, 238, 192):
+        x = torch.randn((4, nn_, nn_), device=dev, generator=gen)
+        a = x @ x.transpose(-1, -2) / nn_
+        w = kernel_jacobi_eigvals(a, sweeps=9)
+        wp = jacobi.jacobi_eigvals(a, sweeps=9)
+        torch.cuda.synchronize()
+        plain_rel = ((w - wp).abs().amax(-1) / wp.abs().amax(-1)).max().item()
+        route = eigvals_route(nn_)
+        if not plain_rel <= 1e-4:
+            raise AssertionError(f"jacobi_eigvals n={nn_} route {route}: vs plain "
+                                 f"{plain_rel} (tol 1e-4)")
+        report["jacobi_eigvals"][f"route edge (4, {nn_}, {nn_})"] = dict(
+            max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel, route=route)
+        print(f"kernel jacobi_eigvals route edge (4, {nn_}, {nn_}) sweeps=9 (route "
+              f"{route}): vs plain {plain_rel:.3g} (tol 1e-4)")
 
     # K3 through its device-memory V^T route (n = 192 > 168) on the sweeps
     # probe's two spectrum families: against its plain version at sweeps
@@ -955,12 +994,19 @@ def main() -> int:
     # the port's own kernels (csrc/*.cu); PyTorch's softmax and arange
     # kernels also sit in anonymous namespaces
     own_kernel = re.compile(
-        r"void \(anonymous namespace\)::(attn_\w+|jacobi_\w*kernel|warp_kernel)[<(]")
+        r"void \(anonymous namespace\)::(attn_\w+|jacobi_\w*kernel|warp_\w*kernel)[<(]")
     own = [e for e in dev_events if own_kernel.match(e.key)]
     print(f"profile: the port's kernels {sum(device_us(e) for e in own) / 1e3:.3f} "
           f"ms of device time in the step")
     for e in sorted(own, key=device_us, reverse=True):
         print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    # torch.profiler has dropped K4's one launch in every profile so far;
+    # its device time per launch is phase 4's `kernel_ms` reading
+    warp_row = report["warp"][f"main path {(batch, img, img, 3)}"]
+    in_profile = any("warp_" in e.key for e in own)
+    print(f"profile: K4 (warp, route {warp_row['route']}) device "
+          f"{warp_row['device_ms']:.5f} ms per launch by kernel_ms (phase 4); "
+          f"{'recorded' if in_profile else 'no record'} in this profile")
 
     # ---- result lines ----
     meta = {

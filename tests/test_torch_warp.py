@@ -142,3 +142,49 @@ def test_pass_bounds_and_levels_match_jax():
         assert twarp.pass_bounds(n) == jwarp.pass_bounds(n)
         for bnd in twarp.pass_bounds(n):
             assert twarp._levels(bnd) == jwarp._levels(bnd)
+
+
+class _RecordingLibrary:
+    """Stands in for the warp kernel library: records each entry point
+    called and its arguments, and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("basd_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("n", range(1, twarp.MAX_N + 1))
+def test_raw_launch_takes_the_route_of_warp_route(n, c, monkeypatch):
+    """`_warp_cuda` launches the entry point of the route that `warp_route`
+    names, and only that, with (batch, n, C); one launch counted. C = 3
+    takes one CTA per sample to n = 139 and a cluster of three CTAs above;
+    C = 1 always fits one CTA."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(twarp.kernels, "library", lambda name: lib)
+    monkeypatch.setattr(twarp, "_stream", lambda x: 0)
+    monkeypatch.setitem(twarp.kernels.LAUNCHES, "warp", 0)
+    twarp._warp_cuda(torch.zeros((2, n, n, c)), torch.zeros((2, 8)))
+    [(entry, args)] = lib.calls
+    route = twarp.warp_route(n, c)
+    assert entry == f"basd_warp_{route}"
+    assert args[3:6] == (2, n, c)
+    assert route == ("cta" if c == 1 or n <= 139 else "cluster")
+    assert twarp.kernels.LAUNCHES["warp"] == 1
+
+
+def test_warp_routes_by_shape():
+    """A sample's C planes in one CTA while they fit 227 KB (row stride
+    odd: n + 1 for even n, n for odd n), a cluster of C <= 8 CTAs above,
+    one CTA per sample and channel beyond 8 channels; n > 240 refused."""
+    assert [twarp.plane_ld(n) for n in (1, 32, 33, 224)] == [1, 33, 33, 225]
+    assert twarp.warp_route(139, 3) == "cta" and twarp.warp_route(140, 3) == "cluster"
+    assert twarp.warp_route(240, 1) == "cta" and twarp.warp_route(240, 2) == "cluster"
+    assert twarp.warp_route(240, 8) == "cluster" and twarp.warp_route(240, 9) == "plane"
+    assert twarp.warp_route(32, 16) == "cta" and twarp.warp_route(96, 16) == "plane"
+    with pytest.raises(ValueError, match="1 <= n <= 240"):
+        twarp.warp_route(241, 3)
