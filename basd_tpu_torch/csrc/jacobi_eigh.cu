@@ -506,7 +506,7 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 }
 
 // ---------------------------------------------------------------------------
-// kPacked, K5 (eigenvalues only) at even n <= 238: PR 5's ping-pong step
+// kPacked, K5 (eigenvalues only) at even n <= 238: kPingPong's step
 // carried to large n on the upper block triangle of A.
 //
 // What bounded the route it replaces (kVtShared's loop with A alone, one

@@ -36,7 +36,7 @@
 // and writes the line back; a block barrier separates the passes) and the
 // plane is stored once; no intermediate touches device memory.
 //
-// PR 2's design (the kPlane route below, one CTA of 256 threads per
+// The first design (the kPlane route below, one CTA of 256 threads per
 // (sample, channel)) read and wrote 4 bytes at a 12-byte stride across the
 // NHWC channels, so a warp's request spanned three times the bytes it
 // used, and the three channel CTAs of a sample fetched the same lines; at
@@ -63,7 +63,7 @@
 //     passes on its own plane with 32 warps; each stores its 1/C of the
 //     sample the same way, reading the owners' planes;
 //   * kPlane (`basd_warp_plane`, C > 8 above one CTA's shared memory, which
-//     no caller of the port has): PR 2's kernel, unchanged.
+//     no caller of the port has): the first design, unchanged.
 // The index map of the load is affine in the input pixel (o0 + iy dy +
 // ix dx, per sample), and element indices are split into pixel, channel,
 // row and column by multiply-high division by the run-time C and n
@@ -74,7 +74,7 @@
 // loop issues no empty slots at small n.
 //
 // Measured on an H100 (PERF.md §6, basd_tpu_torch/tools/time_warp.py,
-// device time per launch; the parent is PR 2's kernel): (128, 32, 32, 3)
+// device time per launch, against the first design): (128, 32, 32, 3)
 // 0.0071 against 0.0101 ms, (256, 224, 224, 3) 0.377 against 0.659 ms,
 // both on chip_smoke.py's mix of every op. Alternatives that lost: the
 // cluster route with 4-byte DSMEM scatter and gather, 0.576 ms at
@@ -489,7 +489,7 @@ int launch_cluster(const void* x, void* out, const void* params, int batch, int 
   return (int)cudaGetLastError();
 }
 
-// kPlane: PR 2's kernel, one CTA per (sample, channel), strided loads
+// kPlane: the first design, one CTA per (sample, channel), strided loads
 __global__ void __launch_bounds__(kPlaneThreads)
 warp_plane_kernel(const float* __restrict__ x, float* __restrict__ out,
                   const float* __restrict__ params, int n, int channels) {

@@ -32,7 +32,7 @@ MAX_N = 238
 # the n at which K5 has an instantiation of its own (n and the thread split
 # compile-time constants): the spectral tuner's D_s = 192, where it took
 # 6% less device time than n at run time (PERF.md §6)
-EIGVALS_FIXED_N = (192,)
+EIGVALS_FIXED_N = 192
 
 
 def eigh_route(n: int) -> str:
@@ -48,11 +48,11 @@ def eigvals_route(n: int) -> str:
     """K5's route at even 4 <= n <= 238, the one `_jacobi_eigvals_raw_cuda`
     launches; both hold A's upper block triangle in two shared-memory
     buffers: "packed_fixed" (`basd_jacobi_eigvals_packed_fixed`, an
-    instantiation for that n) at the n of `EIGVALS_FIXED_N`, else "packed"
+    instantiation for that n) at n = `EIGVALS_FIXED_N`, else "packed"
     (`basd_jacobi_eigvals_packed`, n at run time)."""
     if n % 2 or not 4 <= n <= MAX_N:
         raise ValueError(f"jacobi eigenvalues kernel takes even 4 <= n <= {MAX_N}, got {n}")
-    return "packed_fixed" if n in EIGVALS_FIXED_N else "packed"
+    return "packed_fixed" if n == EIGVALS_FIXED_N else "packed"
 
 
 def _check(a: torch.Tensor) -> tuple[int, int]:

@@ -76,16 +76,16 @@ def test_packed_pair_inputs_take_every_half(n):
     v = torch.eye(n).expand(4, n, n)
     for _ in range(2):
         a, v = tjacobi.jacobi_step(a, v)
+    upper = [tjacobi.packed_slot(k, k + h, n) for k in range(h)]  # a_{k,k+h}
     x = tjacobi.pack_upper(_symmetric(a))
-    c, s = tjacobi.rotations(*(tjacobi.packed_diag(x, n)[:, :h],
-                               tjacobi.packed_diag(x, n)[:, h:],
-                               x[:, [tjacobi.packed_slot(k, k + h, n) for k in range(h)]]))
+    d = tjacobi.packed_diag(x, n)
+    c, s = tjacobi.rotations(d[:, :h], d[:, h:], x[:, upper])
     assert (s > 0).any() and (s < 0).any()
     nxt, _, _ = tjacobi.packed_step(x, c, s)
     app, aqq, apq = tjacobi.packed_pair_inputs(x, c, s)
     d = tjacobi.packed_diag(nxt, n)
     assert torch.equal(app, d[:, :h]) and torch.equal(aqq, d[:, h:])
-    assert torch.equal(apq, nxt[:, [tjacobi.packed_slot(k, k + h, n) for k in range(h)]])
+    assert torch.equal(apq, nxt[:, upper])
 
 
 @pytest.mark.parametrize("n", EVEN_N)
