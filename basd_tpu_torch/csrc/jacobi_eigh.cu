@@ -556,7 +556,12 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 // (12, 192, 192) and sweeps 9 on an H100, where the kVtShared-style loop
 // it replaces took 7.0055 ms (PERF.md §6,
 // basd_tpu_torch/tools/time_jacobi.py). One step at n = 192 is 392
-// instructions per warp: 52 shared loads, 25 stores, one barrier.
+// instructions per warp: 52 shared loads, 25 stores, one barrier. An
+// alternative that lost: a cluster of two CTAs per matrix, each holding
+// the full ping-pong A's rows of half the pairs, rotated with the plain
+// version's rounding, rows that move to the other half written over
+// distributed shared memory, one cluster barrier a step: 7.19 ms against
+// 2.10 in the same call (4.18 us a step), though it used 24 SMs.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxNPacked = 238;
