@@ -16,7 +16,8 @@
 // sorting and stripping an odd-n pad stay in the wrapper.
 //
 // What bounds it here: the work is tiny (about 9 n^2 flops per step with
-// V, 6 n^2 without) and the bytes are one read of A and one write of w and
+// V, 3 n (n + 2) without, on the upper block triangle of the symmetric A)
+// and the bytes are one read of A and one write of w and
 // V^T, but the (n - 1) * sweeps steps form a chain of dependent phases
 // (282 steps at n = 48, six sweeps; 1,719 at n = 192, nine sweeps), each
 // ending in a block-wide barrier. So it is bound by the latency of one
@@ -67,8 +68,8 @@
 //     (7 MB at (48, 192, 192)), and the final logical-order copy goes to
 //     vt_out;
 //   * kPacked (K5, `basd_jacobi_eigvals_packed`, even n <= 238, n at run
-//     time) and kFixedN (K5, `basd_jacobi_eigvals_packed_fixed`, the same
-//     kernel instantiated for the tuner's n = 192): see the note above
+//     time, or the same kernel instantiated for the tuner's n = 192,
+//     kFixedN, which the entry point picks itself): see the note above
 //     `jacobi_packed_kernel` below.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
@@ -552,7 +553,8 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 // 16-bit offsets to a register (at n = 238, 8 blocks a thread in a CTA of
 // 1,024 threads, 64 registers each). For the spectral tuner's n = 192 the
 // same kernel is instantiated with n and the thread split as constants
-// (kFixedN): 6.0% less device time there, 2.1125 against 2.2463 ms at
+// (kFixedN, which `basd_jacobi_eigvals_packed` launches at that n; the n
+// is named once, kPackedFixedN): 6.0% less device time there, 2.1125 against 2.2463 ms at
 // (12, 192, 192) and sweeps 9 on an H100, where the kVtShared-style loop
 // it replaces took 7.0055 ms (PERF.md §6,
 // basd_tpu_torch/tools/time_jacobi.py). One step at n = 192 is 392
@@ -567,6 +569,9 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 constexpr int kMaxNPacked = 238;
 constexpr int kPackedMaxThreads = 1024;
 constexpr int kPackedMaxPer = 8;
+// the one n with an instantiation of its own (kFixedN): the spectral
+// tuner's D_s, Table-3's student width
+constexpr int kPackedFixedN = 192;
 
 // c x - s y and s x + c y, each one FMUL and one FFMA in this fixed form,
 // so that rot_hi_fma(c, s, x, y) == rot_lo_fma(c, -s, y, x) bit for bit
@@ -822,6 +827,7 @@ int launch_packed_fixed(const void* a, void* w, int batch, int steps, void* stre
 int launch_packed(const void* a, void* w, int batch, int n, int steps, void* stream) {
   if (n < 4 || n > kMaxNPacked || n % 2 != 0 || batch <= 0)
     return (int)cudaErrorInvalidValue;
+  if (n == kPackedFixedN) return launch_packed_fixed<kPackedFixedN>(a, w, batch, steps, stream);
   const PackedShape p = packed_shape(n);
   if (p.smem > kMaxSharedBytes || p.threads > kPackedMaxThreads)
     return (int)cudaErrorInvalidValue;
@@ -848,17 +854,9 @@ extern "C" int basd_jacobi_eigh(const void* a, void* w, void* vt,
   return launch<kVtGlobal>(a, w, vt, scratch, batch, n, steps, stream);
 }
 
-// K5, eigenvalues only: the kPacked route at even n <= 238, n at run time.
+// K5, eigenvalues only: the kPacked route at even n <= 238, n at run time
+// except at kPackedFixedN, which has an instantiation of its own.
 extern "C" int basd_jacobi_eigvals_packed(const void* a, void* w, int batch, int n,
                                           int steps, void* stream) {
   return launch_packed(a, w, batch, n, steps, stream);
-}
-
-// K5, the kFixedN route: the packed kernel instantiated for one n, the
-// spectral tuner's n = 192 (Table-3's D_s).
-extern "C" int basd_jacobi_eigvals_packed_fixed(const void* a, void* w, int batch,
-                                                int n, int steps, void* stream) {
-  if (batch <= 0) return (int)cudaErrorInvalidValue;
-  if (n == 192) return launch_packed_fixed<192>(a, w, batch, steps, stream);
-  return (int)cudaErrorInvalidValue;
 }

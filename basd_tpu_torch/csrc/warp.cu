@@ -59,7 +59,9 @@
 //     CTA c owning channel c's plane. Each CTA loads a contiguous 1/C of
 //     the sample with 16-byte loads and writes each value into its
 //     channel owner's shared memory over distributed shared memory
-//     (`map_shared_rank`), then the cluster syncs; each runs the three
+//     (`map_shared_rank`), once a cluster barrier at the kernel's start
+//     has shown every CTA of the cluster running (the programming model
+//     allows remote stores only then), then the cluster syncs; each runs the three
 //     passes on its own plane with 32 warps; each stores its 1/C of the
 //     sample the same way, reading the owners' planes;
 //   * kPlane (`basd_warp_plane`, C > 8 above one CTA's shared memory, which
@@ -413,6 +415,10 @@ warp_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
                     const float* __restrict__ params, int n, int ld, bool vec,
                     FastDiv fd_c, FastDiv fd_n) {
   extern __shared__ __align__(16) float plane[];  // n rows, ld apart
+  // A CTA may write another's shared memory only once that CTA has started:
+  // a cluster barrier before the first remote store, its arrive relaxed (it
+  // orders no memory) and issued first, so that the set-up below overlaps it
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.x / kC;
@@ -423,6 +429,7 @@ warp_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
   const int nt = blockDim.x;
   // this CTA's contiguous 1/kC of the sample
   const long long lo = img + (long long)rank * n * n, hi = lo + (long long)n * n;
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
   if (vec) {
     // two groups in flight where their 8 kC values leave registers to
     // spare (kC <= 3; above, 64 registers a thread would spill)

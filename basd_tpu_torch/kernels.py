@@ -45,7 +45,6 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         "basd_jacobi_eigh": [_P] * 4 + [_I] * 3 + [_P],
         # a, w, batch, n, steps, stream
         "basd_jacobi_eigvals_packed": [_P] * 2 + [_I] * 3 + [_P],
-        "basd_jacobi_eigvals_packed_fixed": [_P] * 2 + [_I] * 3 + [_P],
     },
     "warp": {
         # images, out, params, batch, n, channels, stream: one entry point

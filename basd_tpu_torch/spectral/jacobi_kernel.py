@@ -29,10 +29,6 @@ from basd_tpu_torch.spectral import jacobi
 MAX_N_PINGPONG = 96
 MAX_N_SHARED_VT = 168
 MAX_N = 238
-# the n at which K5 has an instantiation of its own (n and the thread split
-# compile-time constants): the spectral tuner's D_s = 192, where it took
-# 6% less device time than n at run time (PERF.md §6)
-EIGVALS_FIXED_N = 192
 
 
 def eigh_route(n: int) -> str:
@@ -46,13 +42,13 @@ def eigh_route(n: int) -> str:
 
 def eigvals_route(n: int) -> str:
     """K5's route at even 4 <= n <= 238, the one `_jacobi_eigvals_raw_cuda`
-    launches; both hold A's upper block triangle in two shared-memory
-    buffers: "packed_fixed" (`basd_jacobi_eigvals_packed_fixed`, an
-    instantiation for that n) at n = `EIGVALS_FIXED_N`, else "packed"
-    (`basd_jacobi_eigvals_packed`, n at run time)."""
+    launches: "packed" (`basd_jacobi_eigvals_packed`), A's upper block
+    triangle in two shared-memory buffers, at every n. The library runs it
+    with n at run time, or with n a compile-time constant at the spectral
+    tuner's n = 192 (6% less device time there, PERF.md §6)."""
     if n % 2 or not 4 <= n <= MAX_N:
         raise ValueError(f"jacobi eigenvalues kernel takes even 4 <= n <= {MAX_N}, got {n}")
-    return "packed_fixed" if n == EIGVALS_FIXED_N else "packed"
+    return "packed"
 
 
 def _check(a: torch.Tensor) -> tuple[int, int]:
@@ -101,7 +97,7 @@ def _jacobi_eigvals_raw_cuda(a: torch.Tensor, sweeps: int) -> torch.Tensor:
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     lib = kernels.library("jacobi_eigh")
     route = eigvals_route(n)
-    status = getattr(lib, f"basd_jacobi_eigvals_{route}")(
+    status = lib.basd_jacobi_eigvals_packed(
         a.data_ptr(), w.data_ptr(), b, n, (n - 1) * sweeps, _stream(a)
     )
     kernels.check(status, f"jacobi_eigvals route {route}")

@@ -8,13 +8,16 @@ flipped.
 
     python -m basd_tpu_torch.tools.time_warp
 
-Each reading is `tools/timing.py:kernel_ms` on the raw launch
-(`ops/warp_kernel.py:_warp_cuda`: 20 launches with the host kept ahead of
-the card). The cases are read in turn, `readings` times over, and a case's
-time is the median of its readings. Prints one JSON line: the library that
-ran (named by its source's hash), the card's name and power limit, and per
-case its readings, median ms and bound (one read and one write of the batch
-at 3.35 TB/s).
+Each reading of device time is `tools/timing.py:kernel_ms` on the raw
+launch (`ops/warp_kernel.py:_warp_cuda`: 20 launches with the host kept
+ahead of the card). Each case is also read by an event loop of 100 wrapper
+calls (`loop_ms`, as chip_smoke.py's "ms": CUDA events around the loop,
+as `timing.device_ms` takes them) and by the host's clock per call while
+that loop is enqueued (`host_ms`, the wrapper's own cost). The cases are read in turn, `readings` times
+over, and a case's time is the median of its readings. Prints one JSON
+line: the library that ran (named by its source's hash), the card's name
+and power limit, and per case its readings, median ms, median loop_ms and
+host_ms, and bound (one read and one write of the batch at 3.35 TB/s).
 
 To time another checkout's kernel on the same card, run this file by its
 path with that checkout first on the module path:
@@ -30,6 +33,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -77,6 +81,23 @@ def _params(b: int, mix: str, dev: torch.device) -> torch.Tensor:
     return wk.warp_params(*(v.to(dev) for v in vals), flip.to(dev))
 
 
+def _host_and_loop_ms(fn, dev: torch.device, reps: int = 100) -> tuple[float, float]:
+    """(host ms per call while enqueuing `reps` calls, event-loop ms per
+    call): `timing.device_ms`'s loop, with the host's clock around the
+    enqueuing alone."""
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize(dev)
+    return host_ms, start.elapsed_time(end) / reps
+
+
 def main(*, readings: int = 7, seed: int = 0) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("time_warp reads the card's device time; no CUDA device")
@@ -87,16 +108,22 @@ def main(*, readings: int = 7, seed: int = 0) -> dict:
         x = torch.from_numpy(rng.random((b, n, n, c), dtype=np.float32)).to(dev)
         for mix in ("edge_mix", "unturned", "quarter_turned"):
             cases[(b, n, c, mix)] = (x, _params(b, mix, dev))
-    times = {key: [] for key in cases}
+    times = {key: ([], [], []) for key in cases}
     for _ in range(readings):
         for key, (x, params) in cases.items():
-            times[key].append(kernel_ms(lambda: wk._warp_cuda(x, params), dev))
+            fn = lambda: wk._warp_cuda(x, params)
+            dev_t, host_t, loop_t = times[key]
+            dev_t.append(kernel_ms(fn, dev))
+            host, loop = _host_and_loop_ms(fn, dev)
+            host_t.append(host)
+            loop_t.append(loop)
     rows = {}
-    for (b, n, c, mix), t in times.items():
+    for (b, n, c, mix), (t, host_t, loop_t) in times.items():
         # a checkout without warp_route runs its one kernel
         route = getattr(wk, "warp_route", lambda n, c: "single")(n, c)
         rows[f"({b}, {n}, {n}, {c}) {mix}"] = dict(
             route=route, readings=t, ms=float(np.median(t)),
+            loop_ms=float(np.median(loop_t)), host_ms=float(np.median(host_t)),
             bound_ms=2 * 4 * b * n * n * c / HBM_BYTES_PER_S * 1e3)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

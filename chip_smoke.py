@@ -621,8 +621,9 @@ def main() -> int:
     def eigvals_timing(a, sweeps, kernel):
         bsz, nn_ = a.shape[0], a.shape[-1]
         n_even = nn_ + nn_ % 2
-        # per step: the 2x2 block rotations of A, about 6 n^2 flops
-        flops = bsz * (n_even - 1) * sweeps * 6 * n_even * n_even
+        # per step: the 2x2 block rotations of A's upper block triangle (A is
+        # symmetric), h (h + 1) / 2 blocks of 24 flops, h = n / 2: 3 n (n + 2)
+        flops = bsz * (n_even - 1) * sweeps * 3 * n_even * (n_even + 2)
         bnd, by = bound(4 * bsz * (nn_ * nn_ + nn_), flops, f32)
         row = dict(
             plain_ms=timed_ms(lambda: jacobi.jacobi_eigvals(a, sweeps=sweeps), 1),

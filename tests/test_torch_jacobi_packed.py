@@ -168,7 +168,7 @@ def test_raw_eigvals_launch_takes_the_route_of_eigvals_route(n, monkeypatch):
 def test_eigvals_routes_by_n():
     assert jacobi_kernel.eigvals_route(4) == "packed"
     assert jacobi_kernel.eigvals_route(190) == "packed"
-    assert jacobi_kernel.eigvals_route(192) == "packed_fixed"
+    assert jacobi_kernel.eigvals_route(192) == "packed"
     assert jacobi_kernel.eigvals_route(238) == "packed"
     for bad in (2, 191, 240):
         with pytest.raises(ValueError, match="even 4 <= n <= 238"):
