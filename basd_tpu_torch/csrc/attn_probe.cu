@@ -17,21 +17,47 @@
 //              elementwise pass over the score tile at all
 //   and o = bf16(e v), accumulated in fp32.
 // tilemax needs M before any exp, and M spans CTAs: it takes two launches.
-// The first (variant `kMaxPass`) computes each CTA's score tile and writes
-// its max to a (B, H, query blocks) scratch; the second reduces the
+// The first (variant `kMaxPass`) computes each CTA's scores and writes
+// their max to a (B, H, query blocks) scratch; the second reduces the
 // group's maxima (group x query blocks floats) and runs the variant.
 //
 // What bounds it here: 4 B H N^2 hd flops (51.9 GFLOP at the teacher's
 // (256, 12, 257, 64)) against 404 MB of q, k, v and o, so by the card's
 // peaks the bytes bound it (0.121 ms against 0.053 ms of bf16 tensor-core
-// time). This first version is the simple one: one CTA per (32-row query
-// block, head, sequence) keeps its 32 x N score rows in shared memory as
-// fp32 (66.6 KB at N = 257, three CTAs per SM), streams k and v through
-// shared memory in 64-key chunks (from L2 after the first of the N/32
-// query blocks of a head) and runs both products on the fp32 CUDA cores,
-// each thread on a 4 x 4 register tile. The
-// tensor-core version belongs to the attention redesign that this probe
-// is the instrument for.
+// time). Both products run on the tensor cores, as K1's do
+// (csrc/attention.cu, whose pieces are copied here: each library is one
+// source file): mma.sync m16n8k16 with bf16 operands and fp32 sums, fed by
+// ldmatrix (v through ldmatrix.trans), operands moved by 16-byte cp.async
+// into bf16 shared memory with rows padded by 8 elements (conflict-free
+// ldmatrix). One CTA per (64 query rows, head, sequence), 4 warps of 16
+// query rows. Two routes by N, chosen in ops/attn_probe.py:probe_route:
+//   * registers (N <= 272, kTiles = 17): the head's whole k and v in
+//     shared memory (39 KB each), and a warp's 16 x 272 scores held in its
+//     mma accumulators (136 fp32 a thread) from the product to the pack:
+//     the row max takes two __shfl_xor within the quad, the variant's pass
+//     runs in registers, and e is packed straight into the bf16 A fragments
+//     of the e v product (the m16n8k16 C layout of two n8 tiles is the A
+//     layout of one k16 step); mxonly packs the accumulators themselves;
+//   * stream (any N <= 1024, the route above 272): K1's route (b), the
+//     head's whole k in shared memory (147 KB at N = 1024) and v streamed
+//     in double-buffered 64-key chunks; a first pass over the keys takes
+//     the row max (full, bf16exp) or the CTA's max (the tilemax first
+//     launch), a second recomputes s with the same instructions on the same
+//     operands (so the same bits) and goes on to e and e v.
+// Keys past N get e = 0 and are left out of every max; rows past N are
+// never stored. The sums of s run in another order than a cuBLAS fp32
+// product's, so a bf16 e may land on the neighbouring value of the plain
+// version's: chip_smoke.py holds each output within one bf16 ulp of its
+// row's max |o|.
+//
+// Measured on an H100 (80GB HBM3, 700 W; PERF.md §6, chip_smoke.py and
+// basd_tpu_torch/tools/time_attn_probe.py), device ms at (256, 12, 257, 64)
+// against a 0.1207 ms bound (bytes): full 0.756, tilemax 1.115, nomax
+// 0.675, bf16exp 0.844, noexp 0.305, mxonly 0.280 (the CUDA-core kernel it
+// replaces: 3.97-6.86). The exponentials take 0.395 ms of full's, at 2.5
+// expf a clock per SM; the stream route, whose smaller registers and
+// shared memory let three CTAs share an SM, reads faster there for the
+// exp variants (full 0.662) and slower for noexp and mxonly.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast math: IEEE exp).
@@ -42,10 +68,16 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 8 x 16 threads, 4 x 4 tiles
-constexpr int HD = 64;         // head_dim of every BASD ViT attention
-constexpr int kBq = 32;        // query rows per CTA
-constexpr int kBk = 64;        // keys per streamed chunk
+using bf16 = __nv_bfloat16;
+
+constexpr int HD = 64;          // head_dim of every BASD ViT attention
+constexpr int kPad = 8;         // bf16 of row padding (ldmatrix without conflicts)
+constexpr int LD = HD + kPad;   // shared-memory row stride, in bf16
+constexpr int kWarps = 4;       // 16-row warp tiles per CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kBq = 16 * kWarps;  // query rows per CTA
+constexpr int kRegTiles = 17;   // 16-key tiles held in registers: N <= 272
+constexpr int kChunk = 64;      // stream route: keys per v chunk
 constexpr int kMaxN = 1024;
 constexpr int kMaxSharedBytes = 232448;
 
@@ -54,215 +86,415 @@ enum Variant {
   kMaxPass = 6,
 };
 
-using bf16 = __nv_bfloat16;
+// ---- pieces of csrc/attention.cu's bf16 kernels ----
 
-__device__ __forceinline__ float round_bf16(float x) {
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` committed groups are still in flight
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+// c += a b for one m16n8k16 tile, bf16 operands, fp32 accumulation
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// two fp32 values rounded to bf16 (to nearest even) in one 32-bit register,
+// lo first: a fragment register of an mma operand
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
 }
 
-// shared-memory layout, in floats: the q tile, one k chunk (HD x kBk+4)
-// or v chunk (kBk x HD+4), and the kBq x padded-N score rows
-constexpr int kQFloats = HD * kBq;
-constexpr int kKVFloats = HD * (kBk + 4);
-static_assert(kKVFloats >= kBk * (HD + 4), "a v chunk fits the k chunk's space");
-size_t smem_bytes(int n) {
-  const size_t padded = (n + kBk - 1) / kBk * kBk;
-  return sizeof(float) * (kQFloats + kKVFloats + kBq * padded);
+// ldmatrix row addresses, as offsets into a tile of stride ld: A fragments
+// and the trans-loaded B fragments of two n8 tiles share one pattern, the
+// B fragments of two n8 tiles from rows stored n-major (k for s = q k^T)
+// take another
+__device__ __forceinline__ int frag_a_off(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int frag_b_off(int lane, int ld) {
+  return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
 }
 
-template <int kVariant>
-__global__ void __launch_bounds__(kThreads)
-attn_probe_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ tile_max, int H, int N, int group) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[kThreads / 32];
-  const int nqb = gridDim.x, qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qb * kBq, rows = min(kBq, N - q0);
-  const int sld = (N + kBk - 1) / kBk * kBk;  // padded key count
-  float* Qs = smem;                   // HD x kBq, transposed: Qs[d * kBq + r]
-  float* KV = Qs + kQFloats;          // a k chunk or a v chunk
-  float* S = KV + kKVFloats;          // kBq x sld: scores, then e
-  const long long head = ((long long)b * H + h) * N * HD;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int warp = tid / 32, lane = tid % 32;
+// the A fragments of a 16 x HD tile
+__device__ __forceinline__ void load_a(unsigned (&a)[HD / 16][4], const bf16* tile, int lane) {
+  const bf16* p = tile + frag_a_off(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(a[kk], p + kk * 16);
+}
 
-  // ---- s = q k^T: rows ty*4.., keys tx*4.. of each 64-key chunk ----
-  for (int i = tid; i < kBq * HD; i += kThreads) {
-    const int r = i / HD, d = i - r * HD;
-    Qs[d * kBq + r] = r < rows ? __bfloat162float(q[head + (long long)(q0 + r) * HD + d]) : 0.f;
+// s = q rows^T for 16 rows of a (., HD) tile: two n8 tiles of keys
+__device__ __forceinline__ void scores16(float (&s)[2][4], const unsigned (&a)[HD / 16][4],
+                                         const bf16* rows, int lane) {
+  const bf16* p = rows + frag_b_off(lane, LD);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    unsigned b[4];
+    ldsm_x4(b, p + kk * 16);
+    mma16816(s[0], a[kk], b[0], b[1]);
+    mma16816(s[1], a[kk], b[2], b[3]);
   }
-  constexpr int kld = kBk + 4;
-  for (int k0 = 0; k0 < N; k0 += kBk) {
-    const int kn = min(kBk, N - k0);
-    __syncthreads();
-    for (int i = tid; i < kBk * HD; i += kThreads) {
-      const int j = i / HD, d = i - j * HD;
-      KV[d * kld + j] = j < kn ? __bfloat162float(k[head + (long long)(k0 + j) * HD + d]) : 0.f;
-    }
-    __syncthreads();
-    float acc[4][4];
+}
+
+// acc (16 x HD) += p (16 x 16, as A fragments) times 16 rows of a (., HD)
+// tile, the rows being the k dimension (loaded transposed)
+__device__ __forceinline__ void accumulate16(float (&acc)[HD / 8][4], const unsigned (&p)[4],
+                                             const bf16* rows, int lane) {
+  const bf16* src = rows + frag_a_off(lane, LD);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < HD / 16; ++j) {
+    unsigned b[4];
+    ldsm_x4_trans(b, src + j * 16);
+    mma16816(acc[2 * j], p, b[0], b[1]);
+    mma16816(acc[2 * j + 1], p, b[2], b[3]);
+  }
+}
+
+// the A fragment of a 16 x 16 block from the accumulators of its two n8
+// tiles, each rounded to bf16
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// rows [r0, r0 + rows) of one head's contiguous (N, HD) slab into a bf16
+// tile of stride LD by 16-byte cp.async, thread `tid` of `nthreads`; rows
+// at or past n are zero-filled
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int r0, int rows, int n,
+                                        int tid, int nthreads) {
+  constexpr int kVec = HD / 8;
+  for (int i = tid; i < rows * kVec; i += nthreads) {
+    const int r = i / kVec, c = i - r * kVec;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * LD + c * 8, ok ? src + (long long)(r0 + r) * HD + c * 8 : src, ok);
+  }
+}
+
+// a warp's 16 x HD fp32 tile, rounded to bf16, to rows [r0, r0 + 16) of one
+// head's (N, HD) slab (rows at or past n dropped), staged through the
+// warp's own smem tile for 16-byte stores
+__device__ __forceinline__ void store_tile(bf16* stage, const float (&acc)[HD / 8][4],
+                                           bf16* dst, int r0, int n, int lane) {
+  constexpr int kVec = HD / 8;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qs + d * kBq + ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(KV + d * kld + tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    *reinterpret_cast<unsigned*>(stage + g * LD + nt * 8 + 2 * t) =
+        pack_bf16(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<unsigned*>(stage + (g + 8) * LD + nt * 8 + 2 * t) =
+        pack_bf16(acc[nt][2], acc[nt][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * kVec; i += 32) {
+    const int r = i / kVec, c = i - r * kVec;
+    if (r0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (long long)(r0 + r) * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c * 8);
+  }
+}
+
+// ---- the probe ----
+
+// e of one score s, m the row max (full, bf16exp) or the tile max (tilemax)
+template <int kVariant>
+__device__ __forceinline__ float probe_e(float s, float m) {
+  if constexpr (kVariant == kFull || kVariant == kTileMax) return bf16_round(expf(s - m));
+  if constexpr (kVariant == kNoMax) return bf16_round(expf(s));
+  if constexpr (kVariant == kBf16Exp) return bf16_round(expf(bf16_round(s - m)));
+  return bf16_round(s);  // kNoExp
+}
+
+__host__ __device__ constexpr bool needs_row_max(int variant) { return variant == kFull || variant == kBf16Exp; }
+
+// the A fragment of e for one 16-key tile of scores (keys from key0; row
+// maxima m0, m1 of rows g and g + 8): e of each valid key, 0 past N;
+// mxonly packs the scores themselves (its keys past N score exactly 0,
+// since their k rows are zero-filled)
+template <int kVariant>
+__device__ __forceinline__ void e_fragment(unsigned (&ea)[4], float (&s)[2][4], int key0,
+                                           int N, int t, float m0, float m1) {
+  if constexpr (kVariant != kMxOnly) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(qa[i], ka[c], acc[i][c]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float out[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        out[c] = kVariant == kMxOnly ? round_bf16(acc[i][c]) : acc[i][c];
-      *reinterpret_cast<float4*>(S + (ty * 4 + i) * sld + k0 + tx * 4) =
-          make_float4(out[0], out[1], out[2], out[3]);
-    }
+        s[nt][i] = key0 + nt * 8 + 2 * t + (i & 1) < N ? probe_e<kVariant>(s[nt][i], i < 2 ? m0 : m1)
+                                                       : 0.f;
   }
+  pack_a(ea, s);
+}
+
+// the max of one 16-key tile's scores over valid keys, for rows g (x0) and
+// g + 8 (x1)
+__device__ __forceinline__ void tile_row_max(const float (&s)[2][4], int key0, int N, int t,
+                                             float& x0, float& x1) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (key0 + nt * 8 + 2 * t + j < N) {
+        x0 = fmaxf(x0, s[nt][j]);
+        x1 = fmaxf(x1, s[nt][2 + j]);
+      }
+}
+
+// the tilemax first launch: the CTA's max over its valid rows (warp tile
+// rows g, g + 8 from q0) to tile_max[(b, h, query block)]
+__device__ __forceinline__ void write_cta_max(float x0, float x1, int q0, int g, int N,
+                                              float* red, float* tile_max, long long at) {
+  float mx = fmaxf(q0 + g < N ? x0 : -INFINITY, q0 + g + 8 < N ? x1 : -INFINITY);
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[w]);
+    tile_max[at] = mx;
+  }
+}
+
+// the max over the group's tile maxima, M of tilemax's second launch
+__device__ __forceinline__ float group_max(const float* tile_max, int b, int h, int H,
+                                           int nqb, int group) {
+  const int b0 = b / group * group;
+  float m = -INFINITY;
+  for (int bb = b0; bb < b0 + group; ++bb)
+    for (int t = 0; t < nqb; ++t) m = fmaxf(m, tile_max[((long long)bb * H + h) * nqb + t]);
+  return m;
+}
+
+// Grid (query blocks of kBq rows, H, B), kWarps warps: warp w owns the 16
+// query rows blockIdx.x * kBq + 16 w. kTiles > 0 is the registers route
+// (kTiles 16-key tiles of scores in registers, N <= 16 kTiles), 0 the
+// stream route. Shared memory: k (np rows), v (np rows, or two kChunk-row
+// stages on the stream route), one q tile per warp (later its output
+// staging).
+template <int kVariant, int kTiles>
+__global__ void __launch_bounds__(kThreads)
+attn_probe_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o,
+               float* __restrict__ tile_max, int H, int N, int group) {
+  extern __shared__ __align__(16) unsigned char smem_probe[];
+  __shared__ float red[kWarps];
+  constexpr bool kStream = kTiles == 0;
+  const int nqb = gridDim.x, qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int np = kStream ? (N + 15) & ~15 : 16 * kTiles;  // keys padded to the mma's k step
+  const int nch = (np + kChunk - 1) / kChunk;
+  const int q0 = qb * kBq + warp * 16;
+  const long long head = ((long long)b * H + h) * N * HD;
+  const long long at = ((long long)b * H + h) * nqb + qb;
+  bf16* ks = reinterpret_cast<bf16*>(smem_probe);
+  bf16* vs = ks + np * LD;
+  bf16* qs = vs + (kStream ? 2 * kChunk : np) * LD + warp * 16 * LD;
+  auto load_v = [&](int c) {  // stream route: chunk c into stage c & 1
+    cp_rows(vs + (c & 1) * kChunk * LD, v + head, c * kChunk, min(kChunk, np - c * kChunk), N,
+            tid, kThreads);
+  };
+
+  // k and the warps' q tiles first, then v (or its first chunk)
+  cp_rows(ks, k + head, 0, np, N, tid, kThreads);
+  cp_rows(qs, q + head, q0, 16, N, lane, 32);
+  cp_async_commit();
+  if (kVariant != kMaxPass) {
+    if constexpr (kStream) load_v(0);
+    else cp_rows(vs, v + head, 0, np, N, tid, kThreads);
+  }
+  cp_async_commit();
+  const float tmax = kVariant == kTileMax ? group_max(tile_max, b, h, H, nqb, group) : 0.f;
+  cp_async_wait<1>();
   __syncthreads();
 
-  // ---- tilemax, first launch: this CTA's max over its valid scores ----
-  if (kVariant == kMaxPass) {
-    float mx = -INFINITY;
-    for (int i = tid; i < rows * N; i += kThreads) {
-      const int r = i / N, j = i - r * N;
-      mx = fmaxf(mx, S[r * sld + j]);
-    }
-    mx = warp_max(mx);
-    if (lane == 0) red[warp] = mx;
-    __syncthreads();
-    if (tid == 0) {
-      for (int w = 1; w < kThreads / 32; ++w) mx = fmaxf(mx, red[w]);
-      tile_max[((long long)b * H + h) * nqb + qb] = mx;
-    }
-    return;
-  }
+  unsigned qa[HD / 16][4];
+  load_a(qa, qs, lane);
+  float m0 = tmax, m1 = tmax;
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  // ---- the variant's elementwise pass; keys past N and rows past `rows`
-  // get e = 0 (mxonly has no pass: its padded scores are exact zeros) ----
-  if (kVariant != kMxOnly) {
-    float tmax = 0.f;
-    if (kVariant == kTileMax) {
-      const int b0 = b / group * group;
-      tmax = -INFINITY;
-      for (int bb = b0; bb < b0 + group; ++bb)
-        for (int t = 0; t < nqb; ++t)
-          tmax = fmaxf(tmax, tile_max[((long long)bb * H + h) * nqb + t]);
-    }
-    for (int r = warp; r < kBq; r += kThreads / 32) {
-      float* row = S + r * sld;
-      float m = tmax;
-      if (kVariant == kFull || kVariant == kBf16Exp) {
-        m = -INFINITY;
-        for (int j = lane; j < N; j += 32) m = fmaxf(m, row[j]);
-        m = warp_max(m);
+  if constexpr (!kStream) {
+    // ---- registers: the warp's 16 x np scores stay in its accumulators ----
+    float s[kTiles][2][4];
+#pragma unroll
+    for (int kt = 0; kt < kTiles; ++kt) {
+      if (q0 < N) {
+        scores16(s[kt], qa, ks + kt * 16 * LD, lane);
+      } else {  // no valid row: nothing to compute
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[kt][nt][i] = 0.f;
       }
-      for (int j = lane; j < sld; j += 32) {
-        float e = 0.f;
-        if (j < N && r < rows) {
-          const float s = row[j];
-          if (kVariant == kFull || kVariant == kTileMax) e = round_bf16(expf(s - m));
-          else if (kVariant == kNoMax) e = round_bf16(expf(s));
-          else if (kVariant == kBf16Exp) e = round_bf16(expf(round_bf16(s - m)));
-          else e = round_bf16(s);  // kNoExp
+    }
+    if constexpr (kVariant == kMaxPass || needs_row_max(kVariant)) {
+      float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+      for (int kt = 0; kt < kTiles; ++kt) tile_row_max(s[kt], kt * 16, N, t, x0, x1);
+      if constexpr (kVariant == kMaxPass) {
+        write_cta_max(x0, x1, q0, g, N, red, tile_max, at);
+        return;
+      }
+      m0 = quad_max(x0);
+      m1 = quad_max(x1);
+    }
+    cp_async_wait<0>();  // v, loaded while the scores were made
+    __syncthreads();
+    if (q0 >= N) return;  // no barrier follows
+#pragma unroll
+    for (int kt = 0; kt < kTiles; ++kt) {
+      unsigned ea[4];
+      e_fragment<kVariant>(ea, s[kt], kt * 16, N, t, m0, m1);
+      accumulate16(acc, ea, vs + kt * 16 * LD, lane);
+    }
+  } else {
+    // ---- stream: pass 1 the maxima, pass 2 s again, e and e v by chunks ----
+    if constexpr (kVariant == kMaxPass || needs_row_max(kVariant)) {
+      float x0 = -INFINITY, x1 = -INFINITY;
+      for (int kb = 0; kb < np; kb += 16) {
+        float s[2][4];
+        scores16(s, qa, ks + kb * LD, lane);
+        tile_row_max(s, kb, N, t, x0, x1);
+      }
+      if constexpr (kVariant == kMaxPass) {
+        write_cta_max(x0, x1, q0, g, N, red, tile_max, at);
+        return;
+      }
+      m0 = quad_max(x0);
+      m1 = quad_max(x1);
+    }
+    for (int c = 0; c < nch; ++c) {
+      if (c + 1 < nch) {
+        load_v(c + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* vw = vs + (c & 1) * kChunk * LD;
+      const int rows = min(kChunk, np - c * kChunk);
+      if (q0 < N)
+        for (int j = 0; j < rows; j += 16) {
+          float s[2][4];
+          scores16(s, qa, ks + (c * kChunk + j) * LD, lane);
+          unsigned ea[4];
+          e_fragment<kVariant>(ea, s, c * kChunk + j, N, t, m0, m1);
+          accumulate16(acc, ea, vw + j * LD, lane);
         }
-        row[j] = e;
-      }
+      __syncthreads();
     }
   }
-
-  // ---- o = e v: rows ty*4.., columns tx*TC.. ----
-  constexpr int TC = HD / 16;  // 4
-  constexpr int vld = HD + 4;
-  float acc[4][TC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kBk) {
-    const int kn = min(kBk, N - k0);
-    __syncthreads();
-    for (int i = tid; i < kBk * HD; i += kThreads) {
-      const int j = i / HD, d = i - j * HD;
-      KV[j * vld + d] = j < kn ? __bfloat162float(v[head + (long long)(k0 + j) * HD + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < kBk; ++j) {
-      float ea[4], va[TC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ea[i] = S[(ty * 4 + i) * sld + k0 + j];
-#pragma unroll
-      for (int c = 0; c < TC; ++c) va[c] = KV[j * vld + tx * TC + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < TC; ++c) acc[i][c] = fmaf(ea[i], va[c], acc[i][c]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r < rows) {
-#pragma unroll
-      for (int c = 0; c < TC; ++c)
-        o[head + (long long)(q0 + r) * HD + tx * TC + c] = __float2bfloat16_rn(acc[i][c]);
-    }
-  }
+  store_tile(qs, acc, o + head, q0, N, lane);
 }
 
-template <int kVariant>
-int launch_one(const void* q, const void* k, const void* v, void* o,
-               void* tile_max, int B, int H, int N, int group, void* stream) {
-  const size_t smem = smem_bytes(N);
+size_t smem_bytes(int n, bool stream) {
+  const size_t np = (n + 15) & ~15;
+  const size_t rows = stream ? np + 2 * kChunk : 2 * (size_t)(16 * kRegTiles);
+  return sizeof(bf16) * (rows + kBq) * LD;
+}
+
+template <int kVariant, int kTiles>
+int launch_one(const void* q, const void* k, const void* v, void* o, void* tile_max, int B,
+               int H, int N, int group, void* stream) {
+  const size_t smem = smem_bytes(N, kTiles == 0);
   if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_probe_kernel<kVariant>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        attn_probe_mma<kVariant, kTiles>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((N + kBq - 1) / kBq, H, B);
-  attn_probe_kernel<kVariant><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-      (float*)tile_max, H, N, group);
+  attn_probe_mma<kVariant, kTiles><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)tile_max, H, N, group);
   return (int)cudaGetLastError();
+}
+
+template <int kTiles>
+int launch_route(const void* q, const void* k, const void* v, void* o, void* tile_max,
+                 int B, int H, int N, int hd, int group, int variant, void* stream) {
+  if (B < 1 || H < 1 || B > 65535 || H > 65535 || N < 1 || hd != HD)
+    return (int)cudaErrorInvalidValue;
+  if (N > (kTiles ? 16 * kTiles : kMaxN)) return (int)cudaErrorInvalidValue;
+  if ((variant == kTileMax || variant == kMaxPass) &&
+      (tile_max == nullptr || group < 1 || B % group != 0))
+    return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case kFull: return launch_one<kFull, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kTileMax: return launch_one<kTileMax, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kNoMax: return launch_one<kNoMax, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kBf16Exp: return launch_one<kBf16Exp, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kNoExp: return launch_one<kNoExp, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kMxOnly: return launch_one<kMxOnly, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kMaxPass: return launch_one<kMaxPass, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // One launch of variant `variant` (0..5 as in the enum above; 6 is the
-// tilemax first launch, which writes `tile_max` (B, H, ceil(N / 32)) and
-// not `o`). q, k, v, o are contiguous (B, H, N, 64) bf16.
-extern "C" int basd_attn_probe(const void* q, const void* k, const void* v,
-                               void* o, void* tile_max, int B, int H, int N,
-                               int hd, int group, int variant, void* stream) {
-  if (B < 1 || H < 1 || B > 65535 || H > 65535 || N < 1 || N > kMaxN || hd != HD)
-    return (int)cudaErrorInvalidValue;
-  if ((variant == kTileMax || variant == kMaxPass) &&
-      (tile_max == nullptr || group < 1 || B % group != 0))
-    return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case kFull: return launch_one<kFull>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kTileMax: return launch_one<kTileMax>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kNoMax: return launch_one<kNoMax>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kBf16Exp: return launch_one<kBf16Exp>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kNoExp: return launch_one<kNoExp>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kMxOnly: return launch_one<kMxOnly>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kMaxPass: return launch_one<kMaxPass>(q, k, v, o, tile_max, B, H, N, group, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// tilemax first launch, which writes `tile_max` (B, H, ceil(N / 64)) and
+// not `o`). q, k, v, o are contiguous (B, H, N, 64) bf16, 16-byte aligned.
+// The registers route takes N <= 272, the stream route any N <= 1024.
+extern "C" int basd_attn_probe_registers(const void* q, const void* k, const void* v,
+                                         void* o, void* tile_max, int B, int H, int N,
+                                         int hd, int group, int variant, void* stream) {
+  return launch_route<kRegTiles>(q, k, v, o, tile_max, B, H, N, hd, group, variant, stream);
+}
+
+extern "C" int basd_attn_probe_stream(const void* q, const void* k, const void* v, void* o,
+                                      void* tile_max, int B, int H, int N, int hd, int group,
+                                      int variant, void* stream) {
+  return launch_route<0>(q, k, v, o, tile_max, B, H, N, hd, group, variant, stream);
 }

@@ -24,9 +24,9 @@
 // step, not by bytes or operations: one CTA per matrix, so every matrix
 // of the batch runs at once on its own SM, A resident in shared memory
 // for the whole run, and as little as possible on each step's critical
-// path. Four routes; the wrapper picks K3's by n
+// path. Three routes; the wrapper picks K3's by n
 // (basd_tpu_torch/spectral/jacobi_kernel.py:eigh_route) and calls its entry
-// point, which refuses an n that it was not built for or that does not fit
+// points, which refuse an n that it was not built for or that does not fit
 // a CTA's 227 KB of shared memory:
 //   * kPingPong (K3, `basd_jacobi_eigh_pingpong`, even n <= 96: the
 //     selector's gate 16 <= n <= 96 and the main path's n = 48), one
@@ -58,15 +58,16 @@
 //     product, sum and difference is rounded on its own, as torch's
 //     elementwise ops round them (no FMA contraction), so the route
 //     returns the plain version's bits;
-//   * kVtShared (K3, `basd_jacobi_eigh` without a scratch, to n = 168): A
-//     and V^T both in shared memory (2 n^2), each thread updating whole
-//     2x2 blocks of A in place, the permutation an index map (logical
-//     position -> row), two barriers a step;
-//   * kVtGlobal (K3, `basd_jacobi_eigh` with a scratch, to n = 238): as
-//     kVtShared with V^T in a device-memory scratch of n^2 per matrix that
-//     the wrapper allocates; its rows are rotated in place through L2
-//     (7 MB at (48, 192, 192)), and the final logical-order copy goes to
-//     vt_out;
+//   * kPackedLog (K3, even 96 < n <= 238): two launches. The first,
+//     `basd_jacobi_eigh_packed_log`, is K5's packed kernel below with a
+//     rotation log (kLog): A alone on one SM as its upper block triangle,
+//     and each step's h rotations (c, s) stored by the rotation lanes that
+//     compute them to a log in device memory, so its eigenvalues are K5's
+//     bits. V^T, which does not fit beside two packed buffers (296 KB at
+//     n = 192 against 227), is not on that chain: V^T <- J^T V^T acts on
+//     each of its columns alone, so the second launch,
+//     `basd_jacobi_eigh_vt_replay`, replays the log onto V^T column-parallel
+//     (see the note above `jacobi_vt_replay_kernel`);
 //   * kPacked (K5, `basd_jacobi_eigvals_packed`, even n <= 238, n at run
 //     time, or the same kernel instantiated for the tuner's n = 192,
 //     kFixedN, which the entry point picks itself): see the note above
@@ -78,8 +79,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-enum Route { kVtShared = 0, kVtGlobal = 1 };
 
 constexpr int kMaxNPingPong = 96;
 constexpr int kPingPongMaxThreads = 1024;
@@ -99,11 +98,11 @@ __device__ __forceinline__ void pair_rotation(float app, float aqq, float apq,
 
 // The kPingPong route rounds every product, sum and difference on its own,
 // as torch's elementwise ops in the plain version do (no FMA contraction),
-// so it returns the plain version's bits. The position-map routes keep the
-// contracted form above: this one made them slower on an H100 (kVtShared
-// by 7.9% at (4, 128, 128), kVtGlobal by 2.7% at (48, 192, 192), K5 by 1.3%
-// at (12, 192, 192)), and `/` and sqrtf in its place made the ping-pong
-// route 5% slower at n = 48 (PERF.md §6, basd_tpu_torch/tools/time_jacobi.py).
+// so it returns the plain version's bits. The packed routes keep the
+// contracted form above: this one made the first design's position-map
+// routes slower on an H100 (by 2.7-7.9%) and K5 by 1.3% at (12, 192, 192),
+// and `/` and sqrtf in its place made the ping-pong route 5% slower at
+// n = 48 (PERF.md §6, basd_tpu_torch/tools/time_jacobi.py).
 __device__ __forceinline__ void pair_rotation_rn(float app, float aqq, float apq,
                                                  float& c, float& s) {
   const bool safe = fabsf(apq) > 1e-30f;
@@ -388,130 +387,15 @@ int launch_pingpong(const void* a, void* w, void* vt, int batch, int n,
   return (int)cudaErrorInvalidValue;
 }
 
-// the shared-memory route keeps K3's original 512 threads; the
-// device-memory route runs n = 192 (18 2x2 blocks per thread at 512) with
-// 1024
-template <int kRoute>
-__host__ __device__ constexpr int threads_of() { return kRoute == kVtShared ? 512 : 1024; }
-
 constexpr int kMaxSharedBytes = 232448;  // 227 KB, sm_90
-
-template <int kRoute>
-size_t smem_bytes(int n) {
-  const size_t mats = kRoute == kVtShared ? 2 : 1;
-  return sizeof(float) * (mats * (size_t)n * n + n) + sizeof(int) * 2 * (size_t)n;
-}
-
-template <int kRoute>
-__global__ void __launch_bounds__(threads_of<kRoute>())
-jacobi_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
-              float* __restrict__ vt_out, float* __restrict__ vt_scratch,
-              int n, int steps) {
-  constexpr int kThreads = threads_of<kRoute>();
-  extern __shared__ float smem[];
-  const int h = n / 2;
-  const long long base = (long long)blockIdx.x * n * n;
-  float* A = smem;                                        // n x n, physical
-  float* VT = kRoute == kVtShared ? A + n * n             // n x n, physical
-                                  : vt_scratch + base;
-  float* cs = A + (kRoute == kVtShared ? 2 : 1) * n * n;  // h
-  float* sn = cs + h;                                     // h
-  int* pos = (int*)(sn + h);  // 2 x n: logical -> physical, double buffer
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < n * n; i += kThreads) {
-    A[i] = a_in[base + i];
-    const int r = i / n;
-    VT[i] = (r == i - r * n) ? 1.f : 0.f;
-  }
-  for (int i = tid; i < n; i += kThreads) pos[i] = i;
-  __syncthreads();
-
-  int cur = 0;
-  for (int step = 0; step < steps; ++step) {
-    const int* P = pos + cur * n;
-    int* Pn = pos + (1 - cur) * n;
-
-    // (c, s) for the logical pairs (i, i + h): pair_rotations
-    for (int i = tid; i < h; i += kThreads) {
-      const int p = P[i], q = P[i + h];
-      pair_rotation(A[p * n + p], A[q * n + q], A[p * n + q], cs[i], sn[i]);
-    }
-    __syncthreads();
-
-    // A <- J^T A J, one 2x2 block per thread: rows first (apply_rows),
-    // then columns (apply_cols)
-    for (int idx = tid; idx < h * h; idx += kThreads) {
-      const int ri = idx / h, ci = idx - ri * h;
-      const int r0 = P[ri], r1 = P[ri + h], c0 = P[ci], c1 = P[ci + h];
-      const float a00 = A[r0 * n + c0], a01 = A[r0 * n + c1];
-      const float a10 = A[r1 * n + c0], a11 = A[r1 * n + c1];
-      const float cr = cs[ri], sr = sn[ri], cc = cs[ci], sc = sn[ci];
-      const float t0 = cr * a00 - sr * a10, t1 = cr * a01 - sr * a11;
-      const float b0 = sr * a00 + cr * a10, b1 = sr * a01 + cr * a11;
-      A[r0 * n + c0] = cc * t0 - sc * t1;
-      A[r0 * n + c1] = sc * t0 + cc * t1;
-      A[r1 * n + c0] = cc * b0 - sc * b1;
-      A[r1 * n + c1] = sc * b0 + cc * b1;
-    }
-    // V^T <- J^T V^T on the logical row pairs (the barrier below makes the
-    // scratch's global writes visible to the whole block, as for shared)
-    for (int idx = tid; idx < h * n; idx += kThreads) {
-      const int i = idx / n, col = idx - i * n;
-      const int r0 = P[i], r1 = P[i + h];
-      const float top = VT[r0 * n + col], bot = VT[r1 * n + col];
-      const float c = cs[i], s = sn[i];
-      VT[r0 * n + col] = c * top - s * bot;
-      VT[r1 * n + col] = s * top + c * bot;
-    }
-    // half-shift permutation of the logical positions
-    for (int j = tid; j < n; j += kThreads) {
-      int src;
-      if (j == 0) src = 0;
-      else if (j == 1) src = h;
-      else if (j < h) src = j - 1;
-      else if (j < n - 1) src = j + 1;
-      else src = h - 1;
-      Pn[j] = P[src];
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const int* P = pos + cur * n;
-  for (int i = tid; i < n; i += kThreads) {
-    const int p = P[i];
-    w_out[(long long)blockIdx.x * n + i] = A[p * n + p];
-  }
-  for (int idx = tid; idx < n * n; idx += kThreads) {
-    const int i = idx / n, col = idx - i * n;
-    vt_out[base + idx] = VT[P[i] * n + col];
-  }
-}
-
-template <int kRoute>
-int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
-           int steps, void* stream) {
-  const size_t smem = smem_bytes<kRoute>(n);
-  if (n < 4 || n % 2 != 0 || batch <= 0 || smem > kMaxSharedBytes)
-    return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        jacobi_kernel<kRoute>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  jacobi_kernel<kRoute><<<batch, threads_of<kRoute>(), smem, (cudaStream_t)stream>>>(
-      (const float*)a, (float*)w, (float*)vt, (float*)scratch, n, steps);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // kPacked, K5 (eigenvalues only) at even n <= 238: kPingPong's step
 // carried to large n on the upper block triangle of A.
 //
-// What bounded the route it replaces (kVtShared's loop with A alone, one
-// CTA per matrix, 1,719 dependent steps at (12, 192, 192) and sweeps 9):
+// What bounded the route it replaces (the first design's position-map loop
+// with A alone, one CTA per matrix, 1,719 dependent steps at (12, 192, 192),
+// sweeps 9):
 // each step computed the h rotations through a position map in front of
 // the block work (a chain of five dependent IEEE divisions and square
 // roots), took two barriers, made four map loads per 2x2 block and
@@ -555,7 +439,7 @@ int launch(const void* a, void* w, void* vt, void* scratch, int batch, int n,
 // same kernel is instantiated with n and the thread split as constants
 // (kFixedN, which `basd_jacobi_eigvals_packed` launches at that n; the n
 // is named once, kPackedFixedN): 6.0% less device time there, 2.1125 against 2.2463 ms at
-// (12, 192, 192) and sweeps 9 on an H100, where the kVtShared-style loop
+// (12, 192, 192) and sweeps 9 on an H100, where the position-map loop
 // it replaces took 7.0055 ms (PERF.md §6,
 // basd_tpu_torch/tools/time_jacobi.py). One step at n = 192 is 392
 // instructions per warp: 52 shared loads, 25 stores, one barrier. An
@@ -602,6 +486,10 @@ __host__ __device__ constexpr PackedShape packed_shape(int n) {
   p.smem = sizeof(float) * (2 * (size_t)p.buf + 4 * (size_t)p.h);
   return p;
 }
+
+// float2 per step of K3's rotation log: h rounded up to even, so that
+// every step's row starts 16-byte aligned (spectral/jacobi_kernel.py:log_pairs)
+__host__ __device__ constexpr int log_pairs(int n) { return (n / 2 + 1) / 2 * 2; }
 
 // block (R, C), R <= C, in row-major order of the upper triangle
 __device__ __forceinline__ int packed_block(int r, int c, int h) {
@@ -654,10 +542,13 @@ __device__ __forceinline__ void packed_block_step(
 // ec[e]'s with s times gc (-1 for j = 1): a bottom row or right column
 // taken as the top or left one with the operands swapped, which gives the
 // block threads' bits (rot_hi_fma(c, s, x, y) == rot_lo_fma(c, -s, y, x)).
+// With kLog the lane also stores the rotation to `logrow` (the next step's
+// row of the rotation log) unless it is null (no step follows).
+template <bool kLog>
 __device__ __forceinline__ void packed_rotation_step(
     const float* __restrict__ A, const float2* __restrict__ cs, float2* __restrict__ csn,
     int k, int h, const int (&ea)[3][4], const int (&er)[3], const int (&ec)[3],
-    const float (&gr)[3], const float (&gc)[3]) {
+    const float (&gr)[3], const float (&gc)[3], float2* __restrict__ logrow) {
   float in[3][4];
 #pragma unroll
   for (int e = 0; e < 3; ++e)
@@ -673,18 +564,26 @@ __device__ __forceinline__ void packed_rotation_step(
   }
   float c, s;
   pair_rotation(x[0], x[1], x[2], c, s);
-  if (k < h) csn[k] = make_float2(c, s);
+  if (k < h) {
+    csn[k] = make_float2(c, s);
+    if constexpr (kLog)
+      if (logrow != nullptr) logrow[k] = make_float2(c, s);
+  }
 }
 
 // Shared memory: buffers A0, A1 (4 planes of m floats and a dummy slot
 // each), then the rotations CS0, CS1 (h float2 each). Block thread
 // t < block_threads takes the blocks t + j * block_threads, j < kPer;
 // rotation lane k < h computes pair k's rotation a step ahead. kN > 0
-// makes n and the thread split compile-time constants (kFixedN).
-template <int kPer, int kN = 0>
+// makes n and the thread split compile-time constants (kFixedN). kLog
+// (K3's kPackedLog route) also writes every step's rotations to `log`,
+// (batch, steps, log_pairs(n)) float2, step t's row holding the rotations
+// that step t applies; nothing else changes, so w is the kLog-free
+// kernel's bits.
+template <int kPer, int kN = 0, bool kLog = false>
 __global__ void __launch_bounds__(kPackedMaxThreads)
 jacobi_packed_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
-                     int n, int steps, int block_threads) {
+                     float2* __restrict__ log, int n, int steps, int block_threads) {
   if constexpr (kN != 0) {
     n = kN;
     block_threads = packed_shape(kN).block_threads;
@@ -698,6 +597,8 @@ jacobi_packed_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
   const long long base = (long long)blockIdx.x * n * n;
   const int tid = threadIdx.x;
   const bool rot = tid >= block_threads;  // whole warps
+  const int lp = log_pairs(n);
+  float2* logb = log + (kLog ? (long long)blockIdx.x * steps * lp : 0);
 
   // A's canonical entries into the packed buffer 0 (the wrapper passes
   // a symmetric A)
@@ -766,15 +667,23 @@ jacobi_packed_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
     float c, s;
     pair_rotation(a_in[base + kk * (n + 1)], a_in[base + (kk + h) * (n + 1)],
                   a_in[base + kk * n + kk + h], c, s);
-    if (k < h) CS0[k] = make_float2(c, s);
+    if (k < h) {
+      CS0[k] = make_float2(c, s);
+      if constexpr (kLog)
+        if (steps > 0) logb[k] = make_float2(c, s);
+    }
   }
   __syncthreads();
 
+  // the log's row of step t, for the rotations computed in step t - 1
+  auto log_row = [&](int t) -> float2* {
+    return kLog && t < steps ? logb + (long long)t * lp : nullptr;
+  };
   for (int step = 0; step + 1 < steps; step += 2) {
-    if (rot) packed_rotation_step(A0, CS0, CS1, k, h, ea, er, ec, gr, gc);
+    if (rot) packed_rotation_step<kLog>(A0, CS0, CS1, k, h, ea, er, ec, gr, gc, log_row(step + 1));
     else packed_block_step<kPer>(A0, CS0, A1, m, src, rc, d01, d23);
     __syncthreads();
-    if (rot) packed_rotation_step(A1, CS1, CS0, k, h, ea, er, ec, gr, gc);
+    if (rot) packed_rotation_step<kLog>(A1, CS1, CS0, k, h, ea, er, ec, gr, gc, log_row(step + 2));
     else packed_block_step<kPer>(A1, CS1, A0, m, src, rc, d01, d23);
     __syncthreads();
   }
@@ -791,47 +700,208 @@ jacobi_packed_kernel(const float* __restrict__ a_in, float* __restrict__ w_out,
   }
 }
 
-template <int kPer>
-int launch_packed_at(const void* a, void* w, int batch, int n, int steps,
+template <int kPer, bool kLog>
+int launch_packed_at(const void* a, void* w, void* log, int batch, int n, int steps,
                      const PackedShape& p, void* stream) {
   if (p.per != kPer) {
     if constexpr (kPer < kPackedMaxPer)
-      return launch_packed_at<kPer + 1>(a, w, batch, n, steps, p, stream);
+      return launch_packed_at<kPer + 1, kLog>(a, w, log, batch, n, steps, p, stream);
     return (int)cudaErrorInvalidValue;
   }
   if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        jacobi_packed_kernel<kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        jacobi_packed_kernel<kPer, 0, kLog>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)p.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  jacobi_packed_kernel<kPer><<<batch, p.threads, p.smem, (cudaStream_t)stream>>>(
-      (const float*)a, (float*)w, n, steps, p.block_threads);
+  jacobi_packed_kernel<kPer, 0, kLog><<<batch, p.threads, p.smem, (cudaStream_t)stream>>>(
+      (const float*)a, (float*)w, (float2*)log, n, steps, p.block_threads);
   return (int)cudaGetLastError();
 }
 
 // the kFixedN route at n = kN
-template <int kN>
-int launch_packed_fixed(const void* a, void* w, int batch, int steps, void* stream) {
+template <int kN, bool kLog>
+int launch_packed_fixed(const void* a, void* w, void* log, int batch, int steps,
+                        void* stream) {
   constexpr PackedShape p = packed_shape(kN);
   static_assert(p.smem <= kMaxSharedBytes && p.per <= kPackedMaxPer, "kFixedN shape");
   const cudaError_t err = cudaFuncSetAttribute(
-      jacobi_packed_kernel<p.per, kN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      jacobi_packed_kernel<p.per, kN, kLog>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  jacobi_packed_kernel<p.per, kN><<<batch, p.threads, p.smem, (cudaStream_t)stream>>>(
-      (const float*)a, (float*)w, kN, steps, p.block_threads);
+  jacobi_packed_kernel<p.per, kN, kLog><<<batch, p.threads, p.smem, (cudaStream_t)stream>>>(
+      (const float*)a, (float*)w, (float2*)log, kN, steps, p.block_threads);
   return (int)cudaGetLastError();
 }
 
-int launch_packed(const void* a, void* w, int batch, int n, int steps, void* stream) {
-  if (n < 4 || n > kMaxNPacked || n % 2 != 0 || batch <= 0)
+template <bool kLog>
+int launch_packed(const void* a, void* w, void* log, int batch, int n, int steps,
+                  void* stream) {
+  if (n < 4 || n > kMaxNPacked || n % 2 != 0 || batch <= 0 ||
+      (kLog && steps > 0 && log == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n == kPackedFixedN) return launch_packed_fixed<kPackedFixedN>(a, w, batch, steps, stream);
+  if (n == kPackedFixedN)
+    return launch_packed_fixed<kPackedFixedN, kLog>(a, w, log, batch, steps, stream);
   const PackedShape p = packed_shape(n);
   if (p.smem > kMaxSharedBytes || p.threads > kPackedMaxThreads)
     return (int)cudaErrorInvalidValue;
-  return launch_packed_at<1>(a, w, batch, n, steps, p, stream);
+  return launch_packed_at<1, kLog>(a, w, log, batch, n, steps, p, stream);
+}
+
+// ---------------------------------------------------------------------------
+// kPackedLog's second launch: V^T rebuilt from the rotation log.
+//
+// V^T starts as the identity, and step t maps rows (k, k + h) of every
+// column to c x - s y and s x + c y (rot_lo_fma, rot_hi_fma: the packed
+// route's fixed contracted form) with step t's rotation k, and moves each
+// row to its next position halfshift_dst, exactly as the ping-pong route
+// moves V^T: so V^T ends in the position order of the diagonal that the
+// first launch writes, with no position map, and the wrapper's `finish`
+// sorts it. A column's steps touch that column alone, so the grid is
+// (column tiles, batch): a CTA holds kReplayCols columns of V^T (lane l of
+// every warp owns column l of the tile, so a warp's loads and stores of a
+// row fall in 32 banks) in two ping-pong shared-memory buffers (24.6 KB
+// each at n = 192), warp w rotates the pairs w, w + kReplayWarps, ..., and
+// one barrier a step makes a step's rows visible to the next. Each step's
+// rotations come from the log (768 B at n = 192, read from L2 or device
+// memory) by 16-byte cp.async into a ring of kReplayRing steps in shared
+// memory, issued kReplayRing - 1 steps ahead, so the barrier's step never
+// waits on a load. A warp loads a group of kReplayGroup pairs before it
+// stores them: the two buffers' offsets are run-time values, so the
+// compiler keeps each load behind every earlier store, and pair by pair a
+// step was twelve shared-memory round trips at n = 192; all of a step's
+// loads at once took so many registers that only two CTAs fit an SM.
+//
+// What bounds it: the work is h n 2x2 column rotations a step (3 n^2
+// flops), each reading and writing 16 B of shared memory, 16 GB at
+// (48, 192, 192) and sweeps 6, which at 128 B a clock per SM is about
+// 0.55 ms spread over all 132 SMs, 0.75 ms on the SMs that hold three of
+// the 288 CTAs. Measured on an H100 (80GB HBM3, 700 W; PERF.md §6,
+// basd_tpu_torch/tools/time_jacobi.py), the two launches together:
+// 2.4534 ms there (K5's kernel alone 1.406; the first design's
+// position-map route 10.56), 0.7640 ms at (4, 128, 128) (3.01).
+// ---------------------------------------------------------------------------
+
+constexpr int kReplayCols = 32;  // one column per lane
+constexpr int kReplayWarps = 8;
+constexpr int kReplayThreads = kReplayWarps * 32;
+constexpr int kReplayGroup = 6;      // pairs whose loads go before their stores
+constexpr int kReplayCtasPerSm = 3;  // the register budget: 85 a thread
+constexpr int kReplayRing = 8;
+constexpr int kReplayMaxPairs = (kMaxNPacked / 2 + kReplayWarps - 1) / kReplayWarps;
+static_assert(kReplayCols == 32, "lane l of every warp owns column l of the tile");
+
+size_t replay_smem(int n) {
+  return sizeof(float) * 2 * (size_t)n * kReplayCols +
+         sizeof(float2) * kReplayRing * (size_t)log_pairs(n);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__global__ void __launch_bounds__(kReplayThreads, kReplayCtasPerSm)
+jacobi_vt_replay_kernel(const float2* __restrict__ log, float* __restrict__ vt_out, int n,
+                        int steps) {
+  extern __shared__ __align__(16) float replay_smem_buf[];
+  const int h = n / 2, lp = log_pairs(n);
+  float* B0 = replay_smem_buf;
+  float* B1 = B0 + n * kReplayCols;
+  float2* ring = reinterpret_cast<float2*>(B1 + n * kReplayCols);
+  const int col0 = blockIdx.x * kReplayCols, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float2* logb = log + (long long)b * steps * lp;
+  // step t's lp rotations, lp / 2 16-byte pieces, into ring slot t mod R
+  auto fetch = [&](int t) {
+    if (t < steps)
+      for (int i = tid; i < lp / 2; i += kReplayThreads)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         smem_addr(ring + (t % kReplayRing) * lp + 2 * i)),
+                     "l"(logb + (long long)t * lp + 2 * i)
+                     : "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int t = 0; t < kReplayRing - 1; ++t) fetch(t);
+
+  for (int i = tid; i < n * kReplayCols; i += kReplayThreads) {
+    const int r = i / kReplayCols;
+    B0[i] = r == col0 + (i - r * kReplayCols) ? 1.f : 0.f;
+  }
+  // this warp's pairs k = warp + j * kReplayWarps, j < npairs: lane's
+  // column of rows k and k + h is read at tid + j * kReplayThreads (and
+  // h kReplayCols on), and its rotated rows go to rows dst(k), dst(k + h)
+  const int npairs = (h - warp + kReplayWarps - 1) / kReplayWarps;
+  const int hoff = h * kReplayCols;
+  int dst[kReplayMaxPairs][2];
+#pragma unroll
+  for (int j = 0; j < kReplayMaxPairs; ++j) {
+    const int k = j < npairs ? warp + j * kReplayWarps : 0;
+    dst[j][0] = halfshift_dst(k, n) * kReplayCols + lane;
+    dst[j][1] = halfshift_dst(k + h, n) * kReplayCols + lane;
+  }
+
+  for (int t = 0; t < steps; ++t) {
+    // step t's rotations have landed (at most R - 2 later steps in
+    // flight), and every warp has finished step t - 1
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kReplayRing - 2) : "memory");
+    __syncthreads();
+    fetch(t + kReplayRing - 1);  // into the slot that step t - 1 read
+    const float* cur = t & 1 ? B1 : B0;
+    float* nxt = t & 1 ? B0 : B1;
+    const float2* cs = ring + (t % kReplayRing) * lp + warp;
+    // a group's loads before its stores: the compiler cannot tell the two
+    // buffers apart, so a store keeps every later load behind it; groups
+    // of kReplayGroup pairs keep the registers within three CTAs an SM
+#pragma unroll
+    for (int j0 = 0; j0 < kReplayMaxPairs; j0 += kReplayGroup) {
+      if (j0 >= npairs) break;
+      float2 r[kReplayGroup];
+      float x[kReplayGroup], y[kReplayGroup];
+#pragma unroll
+      for (int i = 0; i < kReplayGroup; ++i) {
+        const int j = j0 + i;
+        if (j < kReplayMaxPairs && j < npairs) {
+          r[i] = cs[j * kReplayWarps];
+          x[i] = cur[tid + j * kReplayThreads];
+          y[i] = cur[hoff + tid + j * kReplayThreads];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kReplayGroup; ++i) {
+        const int j = j0 + i;
+        if (j < kReplayMaxPairs && j < npairs) {
+          nxt[dst[j][0]] = rot_lo_fma(r[i].x, r[i].y, x[i], y[i]);
+          nxt[dst[j][1]] = rot_hi_fma(r[i].x, r[i].y, x[i], y[i]);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const float* V = steps & 1 ? B1 : B0;
+  const int cols = min(kReplayCols, n - col0);
+  for (int i = tid; i < n * kReplayCols; i += kReplayThreads) {
+    const int r = i / kReplayCols, l = i - r * kReplayCols;
+    if (l < cols) vt_out[(long long)b * n * n + (long long)r * n + col0 + l] = V[i];
+  }
+}
+
+int launch_replay(const void* log, void* vt, int batch, int n, int steps, void* stream) {
+  if (n < 4 || n > kMaxNPacked || n % 2 != 0 || batch <= 0 || batch > 65535 ||
+      (steps > 0 && log == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = replay_smem(n);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_vt_replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n + kReplayCols - 1) / kReplayCols, batch);
+  jacobi_vt_replay_kernel<<<grid, kReplayThreads, smem, (cudaStream_t)stream>>>(
+      (const float2*)log, (float*)vt, n, steps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -844,19 +914,23 @@ extern "C" int basd_jacobi_eigh_pingpong(const void* a, void* w, void* vt, int b
   return launch_pingpong<4>(a, w, vt, batch, n, steps, stream);
 }
 
-// K3, the position-map routes: kVtShared when `scratch` is null, kVtGlobal
-// when it holds batch x n x n floats for V^T.
-extern "C" int basd_jacobi_eigh(const void* a, void* w, void* vt,
-                                void* scratch, int batch, int n, int steps,
-                                void* stream) {
-  if (scratch == nullptr)
-    return launch<kVtShared>(a, w, vt, nullptr, batch, n, steps, stream);
-  return launch<kVtGlobal>(a, w, vt, scratch, batch, n, steps, stream);
+// K3, the kPackedLog route at even n <= 238, first launch: the eigenvalues
+// (K5's kernel and bits) and the rotation log, (batch, steps,
+// log_pairs(n)) float2 that the wrapper allocates.
+extern "C" int basd_jacobi_eigh_packed_log(const void* a, void* w, void* log, int batch,
+                                           int n, int steps, void* stream) {
+  return launch_packed<true>(a, w, log, batch, n, steps, stream);
+}
+
+// K3, the kPackedLog route, second launch: V^T from the first launch's log.
+extern "C" int basd_jacobi_eigh_vt_replay(const void* log, void* vt, int batch, int n,
+                                          int steps, void* stream) {
+  return launch_replay(log, vt, batch, n, steps, stream);
 }
 
 // K5, eigenvalues only: the kPacked route at even n <= 238, n at run time
 // except at kPackedFixedN, which has an instantiation of its own.
 extern "C" int basd_jacobi_eigvals_packed(const void* a, void* w, int batch, int n,
                                           int steps, void* stream) {
-  return launch_packed(a, w, batch, n, steps, stream);
+  return launch_packed<false>(a, w, nullptr, batch, n, steps, stream);
 }

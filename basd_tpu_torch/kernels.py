@@ -40,9 +40,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
     "jacobi_eigh": {
         # a, w, vt, batch, n, steps, stream
         "basd_jacobi_eigh_pingpong": [_P] * 3 + [_I] * 3 + [_P],
-        # a, w, vt, scratch (null: V^T in shared memory), batch, n, steps,
-        # stream
-        "basd_jacobi_eigh": [_P] * 4 + [_I] * 3 + [_P],
+        # a, w, log, batch, n, steps, stream (the packed_log route's first
+        # launch), then log, vt, batch, n, steps, stream (its second)
+        "basd_jacobi_eigh_packed_log": [_P] * 3 + [_I] * 3 + [_P],
+        "basd_jacobi_eigh_vt_replay": [_P] * 2 + [_I] * 3 + [_P],
         # a, w, batch, n, steps, stream
         "basd_jacobi_eigvals_packed": [_P] * 2 + [_I] * 3 + [_P],
     },
@@ -54,8 +55,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         "basd_warp_plane": [_P] * 3 + [_I] * 3 + [_P],
     },
     "attn_probe": {
-        # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream
-        "basd_attn_probe": [_P] * 5 + [_I] * 6 + [_P],
+        # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream: one
+        # entry point per route (ops/attn_probe.py:probe_route)
+        "basd_attn_probe_registers": [_P] * 5 + [_I] * 6 + [_P],
+        "basd_attn_probe_stream": [_P] * 5 + [_I] * 6 + [_P],
     },
 }
 

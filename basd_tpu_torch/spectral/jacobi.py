@@ -16,6 +16,8 @@ makes every pair meet exactly once per sweep of n - 1 steps.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -188,11 +190,36 @@ def pingpong_step(
     a_next[:, r0, c1] = sc * t0 + cc * t1
     a_next[:, r1, c0] = cc * b0 - sc * b1
     a_next[:, r1, c1] = sc * b0 + cc * b1
+    return (a_next, vt_step(vt, c, s), *rotations(*pingpong_pair_inputs(a, c, s)))
+
+
+def vt_step(vt: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """One step of V^T <- J^T V^T with the step's rotations (c, s), each
+    (B, h): rows k and k + h of every column rotated (`apply_cols`' formula
+    on V) and moved to rows dst(k), dst(k + h) (`halfshift_dst`), as the
+    ping-pong route and the packed_log route's replay move them. With
+    `pair_rotations`' (c, s) of each step, the bits of `jacobi_step`'s V."""
+    h = c.shape[-1]
+    dst = torch.tensor(halfshift_dst(2 * h), device=vt.device)
+    cr, sr = c[:, :, None], s[:, :, None]
     top, bot = vt[:, :h], vt[:, h:]
     vt_next = torch.empty_like(vt)
     vt_next[:, dst[:h]] = cr * top - sr * bot
     vt_next[:, dst[h:]] = sr * top + cr * bot
-    return (a_next, vt_next, *rotations(*pingpong_pair_inputs(a, c, s)))
+    return vt_next
+
+
+def replay_vt(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """V^T rebuilt from a rotation log (c, s), each (B, steps, h), step t's
+    row holding the rotations that step t applies: the identity taken
+    through `vt_step` once per step, as the packed_log route's second launch
+    (`jacobi_vt_replay_kernel`) runs it on each column. Its rows end in the
+    position order of the run's final diagonal."""
+    b, steps, h = c.shape
+    vt = torch.eye(2 * h, dtype=c.dtype, device=c.device).expand(b, 2 * h, 2 * h)
+    for t in range(steps):
+        vt = vt_step(vt, c[:, t], s[:, t])
+    return vt
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +304,38 @@ def _packed_rot(c, s, x, y):
     return c * x - s * y
 
 
+@functools.lru_cache(maxsize=None)
+def _packed_tables(n: int) -> dict:
+    """The index tensors (on the CPU) of `packed_step` and
+    `packed_pair_inputs` at n, built once per n: the blocks' row and column
+    pairs, each slot's next slot (`packed_dst`) and which are written, the
+    slots the kernel reads, and for each of the rotation lanes' three
+    entries its four slots, row and column pairs and signs."""
+    h = n // 2
+    rows, cols = packed_blocks(n)
+    dst = torch.tensor(packed_dst(n))
+    src = halfshift_src(n)
+    read = packed_read_slots(n)
+    p1, p2 = src[:h], src[h:]
+    entries = []
+    for ps, qs in ((p1, p1), (p2, p2), (p1, p2)):
+        slots, er, ec, gr, gc = [[], [], [], []], [], [], [], []
+        for p, q in zip(ps, qs):
+            if p % h > q % h or (p % h == q % h and p > q):
+                p, q = q, p
+            i, j = p // h, q // h
+            row, col = p % h, q % h
+            for k, (u, v) in enumerate(((i, j), (1 - i, j), (i, 1 - j), (1 - i, 1 - j))):
+                slots[k].append(read[packed_slot(row + u * h, col + v * h, n)])
+            er.append(row)
+            ec.append(col)
+            gr.append(-1.0 if i else 1.0)
+            gc.append(-1.0 if j else 1.0)
+        entries.append(tuple(torch.tensor(v) for v in (*slots, er, ec, gr, gc)))
+    return dict(rows=torch.tensor(rows), cols=torch.tensor(cols), dst=dst,
+                keep=dst >= 0, read=torch.tensor(read), entries=entries)
+
+
 def packed_pair_inputs(
     x: torch.Tensor, c: torch.Tensor, s: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -286,34 +345,17 @@ def packed_pair_inputs(
     (src(k + h), src(k + h)) and (src(k), src(k + h)), plane (i, j) of its
     block, rotated from the block's four slots with the row pair's s times
     -1 for a bottom row and the column pair's for a right column."""
-    h = c.shape[-1]
-    n = 2 * h
-    src = halfshift_src(n)
-    read = packed_read_slots(n)
-    p1, p2 = src[:h], src[h:]
+    tables = _packed_tables(2 * c.shape[-1])
 
-    def entry(ps, qs):
-        slots, rows, cols, gr, gc = [[], [], [], []], [], [], [], []
-        for p, q in zip(ps, qs):
-            if p % h > q % h or (p % h == q % h and p > q):
-                p, q = q, p
-            i, j = p // h, q // h
-            row, col = p % h, q % h
-            for k, (u, v) in enumerate(((i, j), (1 - i, j), (i, 1 - j), (1 - i, 1 - j))):
-                slots[k].append(read[packed_slot(row + u * h, col + v * h, n)])
-            rows.append(row)
-            cols.append(col)
-            gr.append(-1.0 if i else 1.0)
-            gc.append(-1.0 if j else 1.0)
-        t = lambda v: torch.tensor(v, device=x.device)
-        ins = [x[:, t(sl)] for sl in slots]
-        rows, cols = t(rows), t(cols)
-        sr, sc = s[:, rows] * t(gr), s[:, cols] * t(gc)
+    def entry(e):
+        *slots, rows, cols, gr, gc = (t.to(x.device) for t in e)
+        ins = [x[:, sl] for sl in slots]
+        sr, sc = s[:, rows] * gr, s[:, cols] * gc
         cr, cc = c[:, rows], c[:, cols]
         return _packed_rot(cc, sc, _packed_rot(cr, sr, ins[0], ins[1]),
                            _packed_rot(cr, sr, ins[2], ins[3]))
 
-    return entry(p1, p1), entry(p2, p2), entry(p1, p2)
+    return tuple(entry(e) for e in tables["entries"])
 
 
 def packed_step(
@@ -328,19 +370,19 @@ def packed_step(
     next rotations from `packed_pair_inputs`. On a symmetric A the written
     slots hold the bits of `jacobi_step`'s entries there."""
     h = c.shape[-1]
-    n, m = 2 * h, h * (h + 1) // 2
-    rows, cols = (torch.tensor(v, device=x.device) for v in packed_blocks(n))
+    m = h * (h + 1) // 2
+    t = {k: v.to(x.device) for k, v in _packed_tables(2 * h).items() if k != "entries"}
+    rows, cols = t["rows"], t["cols"]
     a00, a01, a10, a11 = (x[:, q * m:(q + 1) * m] for q in range(4))
     cr, sr, cc, sc = c[:, rows], s[:, rows], c[:, cols], s[:, cols]
     t0, t1 = _packed_rot(cr, sr, a00, a10), _packed_rot(cr, sr, a01, a11)
     b0, b1 = _packed_rot(cr, -sr, a10, a00), _packed_rot(cr, -sr, a11, a01)
     vals = torch.cat([_packed_rot(cc, sc, t0, t1), _packed_rot(cc, -sc, t1, t0),
                       _packed_rot(cc, sc, b0, b1), _packed_rot(cc, -sc, b1, b0)], dim=1)
-    dst = torch.tensor(packed_dst(n), device=x.device)
-    keep = dst >= 0
+    keep = t["keep"]
     nxt = torch.zeros_like(x)
-    nxt[:, dst[keep]] = vals[:, keep]
-    nxt = nxt[:, torch.tensor(packed_read_slots(n), device=x.device)]
+    nxt[:, t["dst"][keep]] = vals[:, keep]
+    nxt = nxt[:, t["read"]]
     return (nxt, *rotations(*packed_pair_inputs(x, c, s)))
 
 

@@ -23,21 +23,26 @@ from basd_tpu_torch.spectral import jacobi
 # points only refuse an n that they were not built for or that does not
 # fit): to n = 96, the selector's gate, A and V^T in two ping-pong buffers
 # each (four padded n x n fp32 buffers in one CTA's 227 KB of shared
-# memory); to n = 168, A and V^T in place (2 n^2); above that V^T in a
-# device-memory scratch. K5's route holds A alone as its upper block
-# triangle in two buffers, which fit up to n = 238.
+# memory); above, to n = 238, two launches: K5's packed kernel (A alone as
+# its upper block triangle in two buffers, which fit up to n = 238) writing
+# each step's rotations to a log in device memory, then V^T rebuilt from
+# the log column-parallel.
 MAX_N_PINGPONG = 96
-MAX_N_SHARED_VT = 168
 MAX_N = 238
 
 
 def eigh_route(n: int) -> str:
     """K3's route at even n, the one `_jacobi_raw_cuda` launches:
-    "pingpong" (`basd_jacobi_eigh_pingpong`), "vt_shared" or "vt_global"
-    (`basd_jacobi_eigh` without and with a V^T scratch)."""
-    if n <= MAX_N_PINGPONG:
-        return "pingpong"
-    return "vt_shared" if n <= MAX_N_SHARED_VT else "vt_global"
+    "pingpong" (`basd_jacobi_eigh_pingpong`) or "packed_log"
+    (`basd_jacobi_eigh_packed_log`, then `basd_jacobi_eigh_vt_replay`)."""
+    return "pingpong" if n <= MAX_N_PINGPONG else "packed_log"
+
+
+def log_pairs(n: int) -> int:
+    """float2 per step of the packed_log route's rotation log: the n/2
+    rotations (c, s), rounded up to even so that every step's row starts
+    16-byte aligned (the replay loads rows by 16-byte cp.async)."""
+    return (n // 2 + 1) // 2 * 2
 
 
 def eigvals_route(n: int) -> str:
@@ -72,20 +77,18 @@ def _jacobi_raw_cuda(a: torch.Tensor, sweeps: int):
     vt = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
     lib = kernels.library("jacobi_eigh")
     route = eigh_route(n)
+    steps = (n - 1) * sweeps
     if route == "pingpong":
         status = lib.basd_jacobi_eigh_pingpong(
-            a.data_ptr(), w.data_ptr(), vt.data_ptr(), b, n, (n - 1) * sweeps,
-            _stream(a),
-        )
+            a.data_ptr(), w.data_ptr(), vt.data_ptr(), b, n, steps, _stream(a))
     else:
-        scratch = None
-        if route == "vt_global":
-            scratch = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
-        status = lib.basd_jacobi_eigh(
-            a.data_ptr(), w.data_ptr(), vt.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, n,
-            (n - 1) * sweeps, _stream(a),
-        )
+        log = torch.empty((b, steps, log_pairs(n), 2), dtype=torch.float32,
+                          device=a.device)
+        status = lib.basd_jacobi_eigh_packed_log(
+            a.data_ptr(), w.data_ptr(), log.data_ptr(), b, n, steps, _stream(a))
+        kernels.check(status, f"jacobi_eigh route {route} (rotations)")
+        status = lib.basd_jacobi_eigh_vt_replay(
+            log.data_ptr(), vt.data_ptr(), b, n, steps, _stream(a))
     kernels.check(status, f"jacobi_eigh route {route}")
     kernels.LAUNCHES["jacobi_eigh"] += 1
     return w, vt

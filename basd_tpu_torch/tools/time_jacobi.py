@@ -1,9 +1,10 @@
 """Device time of the Jacobi kernels per launch and per rotation step, on
 random PSD Grams from a seed: the eigh kernel (K3) at the selector's three
 shapes at n = 48, the spectral tuner's (48, 96, 96), (4, n, n) at every
-even n of its ping-pong route (4..96), (4, 128, 128) on its shared-memory
-position-map route and (48, 192, 192) on its device-memory route; the
-eigenvalues kernel (K5) at the tuner's (12, 192, 192).
+even n of its ping-pong route (4..96), and above n = 96 (its packed_log
+route) at (4, 128, 128), the sweeps probe's (48, 192, 192) and the edges
+n = 98, 168, 170 and 238; the eigenvalues kernel (K5) at the tuner's
+(12, 192, 192).
 
     python -m basd_tpu_torch.tools.time_jacobi
 
@@ -41,8 +42,8 @@ from basd_tpu_torch.tools.timing import kernel_ms
 SHAPES = (
     [("jacobi_eigh", b, n, 6) for b, n in [(48, 48), (12, 48), (4, 48), (48, 96)]]
     + [("jacobi_eigh", 4, n, 6) for n in range(4, 97, 2)]
-    + [("jacobi_eigh", 4, 128, 6), ("jacobi_eigh", 48, 192, 6),
-       ("jacobi_eigvals", 12, 192, 9)]
+    + [("jacobi_eigh", 4, n, 6) for n in (98, 128, 168, 170, 238)]
+    + [("jacobi_eigh", 48, 192, 6), ("jacobi_eigvals", 12, 192, 9)]
 )
 
 

@@ -7,9 +7,10 @@ Phases, in order; any failure raises and the exit code is not 0:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once); the HMMA (tensor-core)
-     instructions in each bf16 attention kernel's SASS (cuobjdump), none
-     allowed to have none; the instruction mix of one rotation step of K3
-     at n = 48 and of K5 at n = 192;
+     instructions in each bf16 attention kernel's and each attention-probe
+     kernel's SASS (cuobjdump), none allowed to have none; the instruction
+     mix of one rotation step of K3 at n = 48 and of K5 (and of its
+     rotation-log twin, K3's first launch above n = 96) at n = 192;
   3. staging: the Table-3 models at full width (DeiT-Tiny/4 student at
      32 px, DINOv2 ViT-B/14 teacher, bf16, random weights from seeds,
      batch 128) and the calibrated subspace K;
@@ -22,18 +23,23 @@ Phases, in order; any failure raises and the exit code is not 0:
      spin kernel); K3 on the main path's own eigh inputs, timed also by
      device time alone per launch and per rotation step, on wide-spectrum
      Grams and at every even n of its ping-pong route (4..96, there bit
-     for bit), and through its shared-memory position-map route at
-     (4, 128, 128) and (3, 167, 167), each case printed with its route;
+     for bit), and through its packed_log route (96 < n <= 238: K5's
+     packed kernel writing a rotation log, then V^T replayed from it) at
+     (4, 128, 128) and (3, 167, 167), its eigenvalues K5's bits, each case
+     printed with its route;
      K4 bit for bit at the main path's (128, 32, 32, 3), the reference
      default's (256, 224, 224, 3) (both also by device time alone) and at
      each route's edges, each case printed with its route;
      K5 on the spectral tuner's own (12, 192, 192) token covariances and
      at an odd n (191), both also by device time alone, and at the
      smallest and largest n of each route (4, 192, 238);
-     K3 at (48, 192, 192), its device-memory V^T route, on the sweeps
-     probe's two spectrum families; K6 in all six variants at the
-     teacher's attention shape (256, 12, 257, 64), with K1 checked on the
-     same q, k, v. At these tool shapes the kernels' event-loop times (K5,
+     K3 at (48, 192, 192), its packed_log route, on the sweeps probe's two
+     spectrum families, by device time alone at sweeps 6 and 12; K6 in all
+     six variants at the teacher's attention shape (256, 12, 257, 64) on
+     its registers route (also by device time alone, and held bit for bit
+     against its stream route there) and at N = 1024 and 300 on its stream
+     route, with K1 checked on the same q, k, v. At these tool shapes the
+     kernels' event-loop times (K5,
      K3 at n = 192, K6 and K1 beside it) are the tools' readings in phase
      5b, and the tuner reuses the features staged here;
   5. main path: a short `make_train_step(augment=False)` run, then train
@@ -172,12 +178,27 @@ def main() -> int:
     if len(hmma) != 3 * 8 or min(hmma.values()) == 0:
         raise AssertionError(f"bf16 attention kernels without HMMA: {hmma}")
     print(f"sass: HMMA instructions per bf16 attention kernel {hmma}")
+    # K6's kernels too: one per variant (and tilemax's first launch) on each
+    # route (17 tiles of keys in registers, or streamed)
+    hmma6, fn = {}, None
+    for line in kernels.sass("attn_probe").splitlines():
+        if "Function :" in line:
+            found = re.search(r"attn_probe_mmaILi(\d+)ELi(\d+)E", line)
+            fn = f"attn_probe_mma<{found.group(1)}, {found.group(2)}>" if found else None
+            if fn:
+                hmma6[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma6[fn] += 1
+    if len(hmma6) != 7 * 2 or min(hmma6.values()) == 0:
+        raise AssertionError(f"attention probe kernels without HMMA: {hmma6}")
+    print(f"sass: HMMA instructions per attention probe kernel {hmma6}")
     # the machine code of one rotation step: the instructions between the
     # loop's first and second step barriers (barrier 0), the block threads'
     # and the rotation lanes' code both, the IEEE division's and square
     # root's branches to their slow paths included (taken only on special
-    # operands); K3's ping-pong route at n = 48 (the main path's) and K5's
-    # packed route at n = 192 (the spectral tuner's)
+    # operands); K3's ping-pong route at n = 48 (the main path's), K5's
+    # packed route at n = 192 (the spectral tuner's) and its rotation-log
+    # twin (the first launch of K3's packed_log route at n = 192)
     jacobi_sass = kernels.sass("jacobi_eigh").splitlines()
 
     def step_mix(fn_name, mangled):
@@ -193,13 +214,14 @@ def main() -> int:
             raise AssertionError(f"{fn_name}: barriers at {bars}")
         one_step = step_ops[bars[1] + 1:bars[2] + 1]
         mix = {k: sum(k in op for op in one_step) for k in
-               ("MUFU", "FFMA", "FMUL", "FADD", "IADD", "LDS", "STS", "SHFL", "CALL",
+               ("MUFU", "FFMA", "FMUL", "FADD", "IADD", "LDS", "STS", "STG", "SHFL", "CALL",
                 "BAR")}
         print(f"sass: {fn_name} one rotation step: {len(one_step)} "
               f"instructions per warp ({mix})")
 
     step_mix("jacobi_pingpong_kernel<48>", "jacobi_pingpong_kernelILi48E")
-    step_mix("jacobi_packed_kernel<6, 192>", "jacobi_packed_kernelILi6ELi192E")
+    step_mix("jacobi_packed_kernel<6, 192>", "jacobi_packed_kernelILi6ELi192ELb0EE")
+    step_mix("jacobi_packed_kernel<6, 192, log>", "jacobi_packed_kernelILi6ELi192ELb1EE")
 
     # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
     img, batch, num_classes, patch = 32, 128, 100, 4
@@ -360,13 +382,18 @@ def main() -> int:
         the plain version and torch.linalg.eigh, with its bound: `ms` by
         the event loop of wrapper calls, `device_ms` the raw launch's
         device time with the host held ahead (`kernel_ms`), and that per
-        rotation step in us. kernel=False leaves the kernel's time to the
-        tool that times it (phase 5b)."""
+        rotation step in us; on the packed_log route (n > 96) also K5's
+        device time on the same input (`k5_device_ms`: the first launch's
+        kernel without its log stores), so the rest is the V^T replay.
+        kernel=False leaves the event-loop time to the tool that times it
+        (phase 5b)."""
         bsz, nn_ = a.shape[0], a.shape[-1]
         n_even = nn_ + nn_ % 2
         steps = (n_even - 1) * sweeps
-        # per step: the 2x2 block rotations of A (6 n^2) and of V^T (3 n^2)
-        flops = bsz * steps * 9 * n_even * n_even
+        # per step: the 2x2 block rotations of the symmetric A's upper block
+        # triangle, h (h + 1) / 2 blocks of 24 flops (3 n (n + 2), as K5's
+        # bound counts them), and of V^T's rows, h n column pairs of 6 (3 n^2)
+        flops = bsz * steps * (3 * n_even * (n_even + 2) + 3 * n_even * n_even)
         nbytes = 4 * bsz * (2 * nn_ * nn_ + nn_)
         bnd, by = bound(nbytes, flops, f32)
         row = dict(
@@ -375,12 +402,22 @@ def main() -> int:
             library_ms=timed_ms(lambda: torch.linalg.eigh(a), 5),
             bound_ms=bnd, bound_by=by,
         )
+        raw = jacobi.symmetrize_pad(a)[0].contiguous()
         if kernel:
             row["ms"] = timed_ms(lambda: kernel_jacobi_eigh(a, sweeps=sweeps), 20)
-            raw = jacobi.symmetrize_pad(a)[0].contiguous()
-            row["device_ms"] = kernel_ms(lambda: _jacobi_raw_cuda(raw, sweeps), dev)
-            row["us_per_step"] = row["device_ms"] * 1e3 / steps
+        row["device_ms"] = kernel_ms(lambda: _jacobi_raw_cuda(raw, sweeps), dev)
+        row["us_per_step"] = row["device_ms"] * 1e3 / steps
+        if eigh_route(n_even) == "packed_log":
+            row["k5_device_ms"] = kernel_ms(lambda: _jacobi_eigvals_raw_cuda(raw, sweeps), dev)
         return row
+
+    def equals_k5(a, sweeps):
+        """Whether K3's eigenvalues are K5's bits on the same input and
+        sweeps (the packed_log route's first launch is K5's kernel with a
+        rotation log)."""
+        raw = jacobi.symmetrize_pad(a)[0].contiguous()
+        return torch.equal(_jacobi_raw_cuda(raw, sweeps)[0],
+                           _jacobi_eigvals_raw_cuda(raw, sweeps))
 
     def eig_residuals(w, vec, a):
         """Reconstruction ||A - V diag(w) V^T|| / ||A|| and orthogonality
@@ -505,12 +542,14 @@ def main() -> int:
           f"orth {worst[1]:.3g} (tol 1e-4); "
           f"device us per rotation step at sweeps=6 by n {us_by_n}")
 
-    # K3's route with A and V^T in shared memory and a position map
-    # (96 < n <= 168) on wide-spectrum Grams, converged (sweeps=12), odd n
-    # padded: within 1e-4 of max|w| of the plain version, V orthogonal and
+    # K3's packed_log route (96 < n <= 238: K5's packed kernel writing each
+    # step's rotations to a log, then V^T replayed from it column by
+    # column) on wide-spectrum Grams, converged (sweeps=12), odd n padded:
+    # within 1e-4 of max|w| of the plain version, V orthogonal and
     # A = V diag(w) V^T within 1e-4 (about 1,500 and 2,000 rotation steps;
-    # the fp32 floor grows with them, 3.4e-5 at n = 96); the eigenvalue
-    # error against float64 LAPACK is reported. Timed at (4, 128, 128).
+    # the fp32 floor grows with them, 3.4e-5 at n = 96); its eigenvalues
+    # K5's bits on the same input; the eigenvalue error against float64
+    # LAPACK is reported. Timed at (4, 128, 128).
     for bsz, nn_ in [(4, 128), (3, 167)]:
         x = torch.randn((bsz, nn_, 2 * nn_), device=dev, generator=gen)
         x = x * torch.logspace(0, -3, 2 * nn_, device=dev)
@@ -524,23 +563,25 @@ def main() -> int:
         eig_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
         rec_err, orth_err = eig_residuals(w, vec, a)
         route = eigh_route(nn_ + nn_ % 2)
-        if not (route == "vt_shared" and plain_rel <= 1e-4 and rec_err <= 1e-4
+        same = equals_k5(a, 12)
+        if not (route == "packed_log" and same and plain_rel <= 1e-4 and rec_err <= 1e-4
                 and orth_err <= 1e-4):
             raise AssertionError(
-                f"jacobi_eigh {(bsz, nn_, nn_)} route {route}: vs plain {plain_rel} "
-                f"recon {rec_err} orth {orth_err} (tol 1e-4)")
+                f"jacobi_eigh {(bsz, nn_, nn_)} route {route}: w equals K5's {same}, vs "
+                f"plain {plain_rel} recon {rec_err} orth {orth_err} (tol 1e-4)")
         row = report["jacobi_eigh"][f"wide spectrum ({bsz}, {nn_}, {nn_})"] = dict(
             max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
             eig_err=eig_err, recon_err=rec_err, orth_err=orth_err, route=route,
-            **(jacobi_timing(a) if nn_ == 128 else {}))
+            w_equals_k5=same, **(jacobi_timing(a) if nn_ == 128 else {}))
         timing = (f"; ms {row['ms']:.4f} (device {row['device_ms']:.4f}, "
-                  f"{row['us_per_step']:.3f} us per step at sweeps=6) plain "
-                  f"{row['plain_ms']:.4f} linalg.eigh {row['library_ms']:.4f} bound "
-                  f"{row['bound_ms']:.5f} ({row['bound_by']})" if "ms" in row else "")
+                  f"{row['us_per_step']:.3f} us per step at sweeps=6; K5 alone "
+                  f"{row['k5_device_ms']:.4f}) plain {row['plain_ms']:.4f} linalg.eigh "
+                  f"{row['library_ms']:.4f} bound {row['bound_ms']:.5f} ({row['bound_by']})"
+                  if "ms" in row else "")
         print(f"kernel jacobi_eigh wide spectrum {(bsz, nn_, nn_)} (route {route}, "
-              f"A and V^T in shared memory): sweeps=12 vs plain {plain_rel:.3g} (tol "
-              f"1e-4), recon {rec_err:.3g} orth {orth_err:.3g} (tol 1e-4), eig vs "
-              f"LAPACK {eig_err:.3g}{timing}")
+              f"packed A, rotation log, V^T replay): sweeps=12 w bit for bit K5's; vs "
+              f"plain {plain_rel:.3g} (tol 1e-4), recon {rec_err:.3g} orth {orth_err:.3g} "
+              f"(tol 1e-4), eig vs LAPACK {eig_err:.3g}{timing}")
 
     # K4 on fp32 (B, n, n, C) images with rows that cover every geometric
     # op at its extremes (`time_warp.edge_ops`: shear +-0.99, translate
@@ -692,13 +733,14 @@ def main() -> int:
         print(f"kernel jacobi_eigvals route edge (4, {nn_}, {nn_}) sweeps=9 (route "
               f"{route}): vs plain {plain_rel:.3g} (tol 1e-4)")
 
-    # K3 through its device-memory V^T route (n = 192 > 168) on the sweeps
-    # probe's two spectrum families: against its plain version at sweeps
-    # 12 within 1e-4 of max|w|, V orthogonal and A = V diag(w) V^T within
-    # 2e-4 (about 2,300 rotations in fp32; a V^T scratch left unrotated
-    # gives a reconstruction error of order 1); the eigenvalue errors
-    # against float64 LAPACK at sweeps 6 and 12 are reported. The sweeps
-    # probe times the kernel in phase 5b.
+    # K3 through its packed_log route at n = 192 on the sweeps probe's two
+    # spectrum families: against its plain version at sweeps 12 within
+    # 1e-4 of max|w|, V orthogonal and A = V diag(w) V^T within 2e-4 (about
+    # 2,300 rotations in fp32; a log replayed a step off gives a
+    # reconstruction error of order 1), its eigenvalues K5's bits at sweeps
+    # 6 and 12; the eigenvalue errors against float64 LAPACK at sweeps 6 and
+    # 12 are reported. Device time here; the sweeps probe reads its event
+    # loop in phase 5b.
     cases = probe_jacobi_sweeps.make_cases(48, 192, np.random.default_rng(0))
     for family, a64 in cases.items():
         a = torch.from_numpy(a64.astype(np.float32)).to(dev)
@@ -712,35 +754,47 @@ def main() -> int:
         eig_err = ((w.double() - w64).abs().amax(-1) / scale).max().item()
         eig6_err = ((w6.double() - w64).abs().amax(-1) / scale).max().item()
         rec_err, orth_err = eig_residuals(w, vec, a)
-        if not (plain_rel <= 1e-4 and orth_err <= 2e-4 and rec_err <= 2e-4):
+        same = equals_k5(a, 6) and equals_k5(a, 12)
+        if not (same and plain_rel <= 1e-4 and orth_err <= 2e-4 and rec_err <= 2e-4):
             raise AssertionError(
-                f"jacobi_eigh n=192 {family}: vs plain {plain_rel} (tol 1e-4), "
-                f"orth {orth_err} recon {rec_err} (tol 2e-4)")
+                f"jacobi_eigh n=192 {family}: w equals K5's {same}, vs plain {plain_rel} "
+                f"(tol 1e-4), orth {orth_err} recon {rec_err} (tol 2e-4)")
         row = dict(max_abs_err=(w - wp).abs().max().item(), rel_err=plain_rel,
                    eig6_err=eig6_err, eig_err=eig_err, recon_err=rec_err,
-                   orth_err=orth_err, route=eigh_route(192))
+                   orth_err=orth_err, route=eigh_route(192), w_equals_k5=same)
         for sw in (6, 12):
             row.update({f"{k}_sweeps{sw}": v
                         for k, v in jacobi_timing(a, sw, kernel=False).items()})
         report["jacobi_eigh"][f"{family} (48, 192, 192)"] = row
         print(f"kernel jacobi_eigh {family} (48, 192, 192) (route {row['route']}, "
-              "V^T in device memory): "
-              f"sweeps=12 vs plain {plain_rel:.3g} (tol 1e-4), orth {orth_err:.3g} "
+              "packed A, rotation log, V^T replay): w bit for bit K5's at sweeps 6 and "
+              f"12; sweeps=12 vs plain {plain_rel:.3g} (tol 1e-4), orth {orth_err:.3g} "
               f"recon {rec_err:.3g} (tol 2e-4), eig vs LAPACK {eig_err:.3g}; "
-              f"sweeps=6 eig vs LAPACK {eig6_err:.3g}; plain "
-              f"{row['plain_ms_sweeps6']:.4f} / {row['plain_ms_sweeps12']:.4f} "
+              f"sweeps=6 eig vs LAPACK {eig6_err:.3g}; device "
+              f"{row['device_ms_sweeps6']:.4f} / {row['device_ms_sweeps12']:.4f} "
+              f"({row['us_per_step_sweeps6']:.3f} us per step; K5 alone "
+              f"{row['k5_device_ms_sweeps6']:.4f} / {row['k5_device_ms_sweeps12']:.4f}) "
+              f"plain {row['plain_ms_sweeps6']:.4f} / {row['plain_ms_sweeps12']:.4f} "
               f"(sweeps 6 / 12) "
               f"linalg.eigh {row['library_ms_sweeps6']:.4f} bound "
               f"{row['bound_ms_sweeps6']:.5f} / {row['bound_ms_sweeps12']:.5f} "
               f"({row['bound_by_sweeps6']})")
 
     # K6 in all six variants at the teacher's attention shape, on the
-    # attention probe's own inputs: each output element within one bf16
-    # ulp of the plain version's (the fp32 sums may round to neighbouring
-    # bf16 values where the two sum in another order). No PyTorch call
-    # computes these variants; SDPA, softmax attention on the same q, k, v,
-    # is timed beside them as the reference. The attention probe times the
-    # kernel and K1 in phase 5b.
+    # attention probe's own inputs, on its registers route (N = 257 <= 272):
+    # each output element within one bf16 ulp of its row's max |o| of the
+    # plain version's. The tensor cores sum s in another order than the
+    # plain version's cuBLAS fp32 product, so a bf16 e may land on the
+    # neighbouring value, and a change of one ulp of one e moves o by up to
+    # that ulp times |v|: where o = e v cancels to much less than its terms,
+    # that is more than one ulp of o's own value (1,205 of 50.5 M elements of
+    # `full` on the card), so the count of such elements is printed beside
+    # the check. Also bit for bit the stream route's on the same inputs (the
+    # same mma instructions on the same operands in the same order); device
+    # time per variant by `kernel_ms` (tilemax's two launches together). No
+    # PyTorch call computes these variants; SDPA, softmax attention on the
+    # same q, k, v, is timed beside them as the reference. The attention
+    # probe reads the kernel's and K1's event loops in phase 5b.
     pb, ph, pn, phd = 256, 12, 257, 64
     q6, k6, v6 = probe_attn_internals.make_inputs(pb, ph, pn, phd, dev)
     nbytes = 4 * q6.numel() * q6.element_size()
@@ -774,31 +828,67 @@ def main() -> int:
           f"{row['device_ms']:.4f} sdpa {sdpa_ms:.4f} (device "
           f"{row['library_device_ms']:.4f}) bound {k1_bnd:.4f} ({k1_by}); "
           "event-loop ms in phase 5b")
-    for variant in attn_probe.VARIANTS:
-        got = attn_probe.probe_attention(q6, k6, v6, variant=variant)
-        want = attn_probe.probe_attention_plain(q6, k6, v6, variant=variant)
+    def bf16_ulp(x):
+        return torch.exp2(torch.floor(torch.log2(x.clamp(min=1e-30))) - 7)
+
+    def probe_check(q, k, v, variant, what):
+        """K6 against its plain version: every element within one bf16 ulp
+        of its row's max |o|; returns the kernel's output and its errors,
+        with the count of elements more than one ulp of their own value."""
+        got = attn_probe.probe_attention(q, k, v, variant=variant)
+        want = attn_probe.probe_attention_plain(q, k, v, variant=variant).float()
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        ulp = torch.exp2(torch.floor(torch.log2(
-            want.float().abs().clamp(min=1e-30))) - 7)
-        if not bool((diff <= ulp).all()):
+        diff = (got.float() - want).abs()
+        row_ulp = bf16_ulp(want.abs().amax(-1, keepdim=True))
+        if not bool((diff <= row_ulp).all()):
             raise AssertionError(
-                f"attn_probe {variant}: {int((diff > ulp).sum())} elements more "
-                f"than one bf16 ulp from the plain version (max {diff.max().item()})")
-        row = dict(
-            max_abs_err=diff.max().item(), differing=int((diff > 0).sum()),
+                f"attn_probe {variant} {what}: {int((diff > row_ulp).sum())} elements more "
+                f"than one bf16 ulp of their row's max |o| from the plain version (max "
+                f"{diff.max().item()})")
+        return got, dict(max_abs_err=diff.max().item(), differing=int((diff > 0).sum()),
+                         over_own_ulp=int((diff > bf16_ulp(want.abs())).sum()),
+                         route=attn_probe.probe_route(q.shape[2]))
+
+    for variant in attn_probe.VARIANTS:
+        got, row = probe_check(q6, k6, v6, variant, (pb, ph, pn, phd))
+        stream = attn_probe._probe_cuda(q6, k6, v6, variant, 8, route="stream")
+        torch.cuda.synchronize()
+        if not torch.equal(got, stream):
+            raise AssertionError(f"attn_probe {variant}: the registers and stream routes "
+                                 f"differ at N = {pn}")
+        del got, stream
+        row.update(
+            device_ms=kernel_ms(lambda: attn_probe._probe_cuda(q6, k6, v6, variant, 8), dev),
+            stream_device_ms=kernel_ms(
+                lambda: attn_probe._probe_cuda(q6, k6, v6, variant, 8, route="stream"), dev),
             plain_ms=timed_ms(lambda: attn_probe.probe_attention_plain(
                 q6, k6, v6, variant=variant), 2),
             library_ms=None, k1_plain_ms=k1_plain_ms,
             k1_bound_ms=k1_bnd, sdpa_ms=sdpa_ms, bound_ms=bnd6, bound_by=by6,
         )
         report.setdefault("attn_probe", {})[f"{variant} {(pb, ph, pn, phd)}"] = row
-        print(f"kernel attn_probe {variant} {(pb, ph, pn, phd)}: max abs err "
-              f"{row['max_abs_err']:.3g} ({row['differing']} elements differ; tol "
-              f"1 bf16 ulp) plain {row['plain_ms']:.4f} bound {bnd6:.4f} ({by6}); "
-              f"K1 fwd plain {k1_plain_ms:.4f}, bound {k1_bnd:.4f}; sdpa "
-              f"{sdpa_ms:.4f} at ({pb}, {pn}, {ph * phd}) H={ph}")
+        print(f"kernel attn_probe {variant} {(pb, ph, pn, phd)} (route {row['route']}): "
+              f"max abs err {row['max_abs_err']:.3g} ({row['differing']} elements differ, "
+              f"{row['over_own_ulp']} by more than one bf16 ulp of their own value; tol 1 "
+              f"bf16 ulp of the row's max |o|), bit for bit the stream route's; device "
+              f"{row['device_ms']:.4f} (stream route {row['stream_device_ms']:.4f}) plain "
+              f"{row['plain_ms']:.4f} bound {bnd6:.4f} ({by6}); K1 fwd plain "
+              f"{k1_plain_ms:.4f}, bound {k1_bnd:.4f}; sdpa {sdpa_ms:.4f} at ({pb}, {pn}, "
+              f"{ph * phd}) H={ph}")
     del cov, q6, k6, v6, q6s, qn, kn, vn
+    # K6 on its stream route, where the scores do not fit in registers: at
+    # the largest N (1024) and at an N with a partial chunk of v and of the
+    # last query block (300), every variant within the same tolerance
+    for n in (1024, 300):
+        qkv = probe_attn_internals.make_inputs(16, 2, n, phd, dev, seed=n)
+        for variant in attn_probe.VARIANTS:
+            _, row = probe_check(*qkv, variant, (16, 2, n, phd))
+            report["attn_probe"][f"{variant} {(16, 2, n, phd)}"] = row
+            print(f"kernel attn_probe {variant} {(16, 2, n, phd)} (route {row['route']}): "
+                  f"max abs err {row['max_abs_err']:.3g}, {row['over_own_ulp']} elements by "
+                  "more than one bf16 ulp of their own value (tol 1 bf16 ulp of the row's "
+                  "max |o|)")
+        del qkv
 
     # ---- 5. the main path: bench.py's augmented step, then augment=False ----
     def main_path(augment, steps):
@@ -1039,8 +1129,10 @@ def main() -> int:
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
                 "orth_err", "eig3_err", "us_per_step", "route", "k1_ms",
                 "k1_plain_ms", "k1_bound_ms", "sdpa_ms", "differing",
+                "stream_device_ms", "w_equals_k5", "k5_device_ms", "over_own_ulp",
                 *(f"{k}_sweeps{sw}" for sw in (6, 12)
-                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")))
+                  for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                            "us_per_step", "k5_device_ms")))
     entries = []
     for name, (src, replaces, main_case) in meta.items():
         row = report[name][main_case]

@@ -172,7 +172,7 @@ def test_slice3_wrappers_never_route_a_device_tensor_to_the_plain_version(
 
 
 def test_slice3_cuda_wrappers_reject_what_the_kernels_do_not_take():
-    """The CUDA-side checks of K3's device-memory route, K5 and K6 run
+    """The CUDA-side checks of K3's packed_log route, K5 and K6 run
     before any library is loaded."""
     from basd_tpu_torch.ops import attn_probe
 

@@ -76,45 +76,54 @@ class _RecordingLibrary:
     def __init__(self):
         self.calls = []
 
-    def basd_jacobi_eigh_pingpong(self, *args):
-        self.calls.append(("basd_jacobi_eigh_pingpong", args))
-        return 0
-
-    def basd_jacobi_eigh(self, *args):
-        self.calls.append(("basd_jacobi_eigh", args))
-        return 0
+    def __getattr__(self, name):
+        if not name.startswith("basd_jacobi_eigh"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
 
 
 @pytest.mark.parametrize("n", range(4, jacobi_kernel.MAX_N + 1, 2))
 def test_raw_launch_takes_the_route_of_eigh_route(n, monkeypatch):
     """`_jacobi_raw_cuda` launches the route that `eigh_route` names, and
-    only that: the ping-pong entry point to n = 96, the position-map entry
-    point above, with a V^T scratch exactly on the device-memory route;
-    one launch counted."""
+    only that: the ping-pong entry point to n = 96; above, the packed_log
+    route's two launches in order, the first writing w and a rotation log
+    of (batch, steps, log_pairs(n)) float2 that the wrapper allocated, the
+    second replaying that log into vt; one launch counted per call."""
     lib = _RecordingLibrary()
+    made = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: made.append(empty(*a, **k)) or made[-1])
     monkeypatch.setattr(jacobi_kernel.kernels, "library", lambda name: lib)
     monkeypatch.setattr(jacobi_kernel, "_stream", lambda a: 0)
     monkeypatch.setitem(jacobi_kernel.kernels.LAUNCHES, "jacobi_eigh", 0)
-    jacobi_kernel._jacobi_raw_cuda(torch.zeros((2, n, n)), sweeps=3)
-    [(entry, args)] = lib.calls
+    a = torch.zeros((2, n, n))
+    w, vt = jacobi_kernel._jacobi_raw_cuda(a, sweeps=3)
     route = jacobi_kernel.eigh_route(n)
     steps = (n - 1) * 3
     if route == "pingpong":
+        [(entry, args)] = lib.calls
         assert entry == "basd_jacobi_eigh_pingpong"
-        assert args[3:6] == (2, n, steps)
+        assert args[:6] == (a.data_ptr(), w.data_ptr(), vt.data_ptr(), 2, n, steps)
     else:
-        assert entry == "basd_jacobi_eigh"
-        assert (args[3] is not None) == (route == "vt_global")
-        assert args[4:7] == (2, n, steps)
+        assert route == "packed_log"
+        [(first, a1), (second, a2)] = lib.calls
+        assert (first, second) == ("basd_jacobi_eigh_packed_log", "basd_jacobi_eigh_vt_replay")
+        [log] = [t for t in made if t.data_ptr() == a1[2]]
+        assert log.shape == (2, steps, jacobi_kernel.log_pairs(n), 2) and log.dtype == torch.float32
+        assert a1[:2] == (a.data_ptr(), w.data_ptr()) and a1[3:6] == (2, n, steps)
+        assert a2[:2] == (log.data_ptr(), vt.data_ptr()) and a2[2:5] == (2, n, steps)
     assert jacobi_kernel.kernels.LAUNCHES["jacobi_eigh"] == 1
 
 
 def test_eigh_routes_by_n():
+    assert jacobi_kernel.eigh_route(4) == "pingpong"
     assert jacobi_kernel.eigh_route(96) == "pingpong"
-    assert jacobi_kernel.eigh_route(98) == "vt_shared"
-    assert jacobi_kernel.eigh_route(168) == "vt_shared"
-    assert jacobi_kernel.eigh_route(170) == "vt_global"
-    assert jacobi_kernel.eigh_route(238) == "vt_global"
+    for n in (98, 168, 170, 192, 238):
+        assert jacobi_kernel.eigh_route(n) == "packed_log"
+    # the log's rows: every rotation of a step, 16-byte aligned
+    for n in range(4, jacobi_kernel.MAX_N + 1, 2):
+        lp = jacobi_kernel.log_pairs(n)
+        assert lp % 2 == 0 and n // 2 <= lp <= n // 2 + 1
 
 
 def _pingpong_eigh(a: torch.Tensor, sweeps: int):

@@ -5,7 +5,12 @@ the next rotations as the rotation lanes compute them, bit for bit against
 `jacobi_step` and `pair_rotations` on symmetric input at every even n to
 96; whole packed runs within tolerance of the JAX package's
 `pallas_jacobi_eigvals` (interpret mode); and the wrapper's dispatch by n
-against a recording stand-in for the library."""
+against a recording stand-in for the library. The eigh kernel's packed_log
+route (K3, 96 < n <= 238), the packed run's rotation log replayed onto V^T
+(`replay_vt`): bit for bit `jacobi_eigh`'s V when fed its own rotations,
+within tolerance of its raw (w, V) when fed the packed run's, at every
+even n the route takes, and within tolerance of the JAX package's
+`pallas_jacobi_eigh` (interpret mode)."""
 
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from basd_tpu.spectral.pallas_jacobi import pallas_jacobi_eigvals
+from basd_tpu.spectral.pallas_jacobi import pallas_jacobi_eigh, pallas_jacobi_eigvals
 from basd_tpu_torch.spectral import jacobi as tjacobi
 from basd_tpu_torch.spectral import jacobi_kernel
 from test_torch_helpers import assert_close, psd, t32
@@ -134,6 +139,108 @@ def test_packed_run_matches_pallas_eigvals(n0):
     assert_close(got, want, 1e-4, "packed eigenvalues vs JAX")
     assert_close(got, tjacobi.jacobi_eigvals(t32(a), sweeps=9).numpy(), 1e-4,
                  "packed eigenvalues vs plain")
+
+
+def _packed_log_run(a: torch.Tensor, steps: int):
+    """The packed_log route's two launches on a symmetric even-n batch:
+    the packed run's diagonal after `steps` steps and its rotation log,
+    (c, s) each (B, steps, h), replayed onto V^T."""
+    n = a.shape[-1]
+    x = tjacobi.pack_upper(a)
+    c, s = tjacobi.pair_rotations(a)
+    log = [(c, s)]
+    for t in range(steps):
+        x, c, s = tjacobi.packed_step(x, c, s)
+        if t + 1 < steps:
+            log.append((c, s))
+    cs, ss = (torch.stack(v, dim=1) for v in zip(*log))
+    return tjacobi.packed_diag(x, n), tjacobi.replay_vt(cs, ss)
+
+
+PACKED_LOG_N = list(range(jacobi_kernel.MAX_N_PINGPONG + 2, jacobi_kernel.MAX_N + 1, 2))
+
+
+@pytest.mark.parametrize("n", PACKED_LOG_N)
+def test_replay_of_jacobi_rotations_is_jacobi_eigh_v_bit_for_bit(n, monkeypatch):
+    """`replay_vt` fed the rotations that `jacobi_eigh` applies in one
+    sweep (n - 1 steps) of a random PSD pair gives its raw (unsorted) V bit
+    for bit: the same rounding of the same rotations, each row moved by the
+    same half-shift, at every even n of the packed_log route."""
+    log, pair_rotations = [], tjacobi.pair_rotations
+    monkeypatch.setattr(tjacobi, "pair_rotations",
+                        lambda a: log.append(pair_rotations(a)) or log[-1])
+    _, v = tjacobi.jacobi_eigh(t32(psd(2, n, seed=n)), sweeps=1, sort=False)
+    assert len(log) == n - 1
+    cs, ss = (torch.stack(t, dim=1) for t in zip(*log))
+    assert torch.equal(tjacobi.replay_vt(cs, ss), v.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("n", PACKED_LOG_N)
+def test_packed_log_run_matches_jacobi_eigh(n):
+    """One sweep of the packed_log route (the packed run's diagonal, its
+    rotation log replayed onto V^T) at every even n it takes, on a
+    diagonally dominant pair (diagonal 1..10, symmetric noise 3e-3, so every
+    rotation is well conditioned), against `jacobi_eigh`'s raw (unsorted)
+    (w, V): w within 1e-5 of max|w|, V^T within 1e-4 of V^T entry by entry
+    (measured at most 5.8e-7 and 8.4e-6: the packed run rotates A's upper
+    triangle, so it rounds otherwise than the full, not exactly symmetric,
+    A). On random PSD input the early rotations are large and the two
+    runs' rounding differences grow step by step (to 0.4 in w at n = 238
+    after one sweep), so there the run is held to its own invariant
+    (`test_packed_log_run_keeps_a_equal_to_v_at_vt`)."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(2, n, n)).astype(np.float32)
+    a = t32(np.diag(np.linspace(1, 10, n, dtype=np.float32))
+            + 3e-3 * (x + x.transpose(0, 2, 1)) / 2)
+    w_raw, v_raw = tjacobi.jacobi_eigh(a, sweeps=1, sort=False)
+    w, vt = _packed_log_run(a, n - 1)
+    w_err = ((w - w_raw).abs().amax(-1) / w_raw.abs().amax(-1)).max().item()
+    v_err = (vt - v_raw.transpose(-1, -2)).abs().max().item()
+    assert w_err <= 1e-5 and v_err <= 1e-4, (w_err, v_err)
+
+
+@pytest.mark.parametrize("n", [98, 130, 168, 170, 200, 238])
+def test_packed_log_run_keeps_a_equal_to_v_at_vt(n):
+    """One sweep of the packed_log route on a random PSD pair (large early
+    rotations): A = V A_t V^T, with A_t the packed run's matrix unpacked
+    from its slots and V^T the replayed log, within 5e-5 of ||A||
+    (Frobenius; measured at most 7.0e-6, the fp32 rounding of n - 1
+    steps); a log one step off or a row moved to the wrong position gives
+    an error of order 1."""
+    a = t32(psd(2, n, seed=n))
+    x = tjacobi.pack_upper(a)
+    c, s = tjacobi.pair_rotations(a)
+    log = [(c, s)]
+    for t in range(n - 1):
+        x, c, s = tjacobi.packed_step(x, c, s)
+        if t + 1 < n - 1:
+            log.append((c, s))
+    cs, ss = (torch.stack(v, dim=1) for v in zip(*log))
+    vt = tjacobi.replay_vt(cs, ss)
+    slots = torch.tensor([[tjacobi.packed_slot(p, q, n) for q in range(n)] for p in range(n)])
+    err = (torch.linalg.matrix_norm(vt.transpose(-1, -2) @ x[:, slots] @ vt - a)
+           / torch.linalg.matrix_norm(a))
+    assert err.max().item() <= 5e-5, err
+
+
+def test_packed_log_run_matches_pallas_eigh():
+    """A whole packed_log run at n0 = 99 (padded to 100), sweeps 9, against
+    the JAX package's `pallas_jacobi_eigh` in interpret mode: eigenvalues
+    within 1e-4 of max|w| and each eigenvector within 1e-4 of the JAX
+    one's up to its sign (|v . v_jax| within 1e-4 of 1; the two choose
+    some columns' signs otherwise); V orthogonal within 1e-4."""
+    n0, sweeps = 99, 9
+    a = psd(2, n0, seed=99)
+    a_even, _ = tjacobi.symmetrize_pad(t32(a))
+    n = a_even.shape[-1]
+    w, vt = _packed_log_run(a_even, (n - 1) * sweeps)
+    w, v = tjacobi.finish(w, vt.transpose(-1, -2), n0, (2,))
+    jw, jv = pallas_jacobi_eigh(jnp.asarray(a), sweeps=sweeps, interpret=True)
+    assert_close(w, np.asarray(jw), 1e-4, "packed_log eigenvalues vs JAX")
+    dots = np.abs(np.einsum("bij,bij->bj", v.numpy(), np.asarray(jv)))
+    assert np.abs(dots - 1).max() <= 1e-4
+    orth = v.transpose(-1, -2) @ v - torch.eye(n0)
+    assert orth.abs().max().item() <= 1e-4
 
 
 class _RecordingLibrary:

@@ -1,6 +1,7 @@
 """The port's tools (`basd_tpu_torch.tools`) run on the CPU at micro
 sizes through the plain versions of their kernels: each prints its
-sections and returns rows; without CUDA the default device raises."""
+sections and returns rows; without CUDA the default device raises, and the
+timing tools, which read device time only, refuse to run."""
 
 import importlib.util
 from pathlib import Path
@@ -13,6 +14,9 @@ from basd_tpu_torch.ops.attn_probe import VARIANTS
 from basd_tpu_torch.tools import (
     probe_attn_internals,
     probe_jacobi_sweeps,
+    time_attn_probe,
+    time_jacobi,
+    time_warp,
     tune_spectral,
 )
 
@@ -92,4 +96,14 @@ def test_tools_default_to_cuda_and_refuse_without_it(tool):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        tool.main()
+
+
+@pytest.mark.parametrize("tool", [time_jacobi, time_warp, time_attn_probe])
+def test_timing_tools_refuse_without_cuda(tool):
+    """The A/B timing tools read the card's device time and nothing else:
+    without CUDA they raise before making any input."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main()
