@@ -30,34 +30,29 @@
 // ldmatrix (v through ldmatrix.trans), operands moved by 16-byte cp.async
 // into bf16 shared memory with rows padded by 8 elements (conflict-free
 // ldmatrix). One CTA per (64 query rows, head, sequence), 4 warps of 16
-// query rows. Two routes by N, chosen in ops/attn_probe.py:probe_route:
-//   * registers (N <= 272, kTiles = 17): the head's whole k and v in
-//     shared memory (39 KB each), and a warp's 16 x 272 scores held in its
-//     mma accumulators (136 fp32 a thread) from the product to the pack:
-//     the row max takes two __shfl_xor within the quad, the variant's pass
-//     runs in registers, and e is packed straight into the bf16 A fragments
-//     of the e v product (the m16n8k16 C layout of two n8 tiles is the A
-//     layout of one k16 step); mxonly packs the accumulators themselves;
-//   * stream (any N <= 1024, the route above 272): K1's route (b), the
-//     head's whole k in shared memory (147 KB at N = 1024) and v streamed
-//     in double-buffered 64-key chunks; a first pass over the keys takes
-//     the row max (full, bf16exp) or the CTA's max (the tilemax first
-//     launch), a second recomputes s with the same instructions on the same
-//     operands (so the same bits) and goes on to e and e v.
+// query rows, any 1 <= N <= 1024, laid out as K1's bf16 forward route
+// (b): the head's whole k in shared memory (147 KB at N = 1024) and v
+// streamed in double-buffered 64-key chunks. A first pass over the keys
+// takes the row max (full, bf16exp) or the CTA's max (the tilemax first
+// launch); a second recomputes s with the same instructions on the same
+// operands (so the same bits), packs e straight into the bf16 A fragments
+// of the e v product (the m16n8k16 C layout of two n8 tiles is the A
+// layout of one k16 step; mxonly packs the accumulators themselves) and
+// goes on to e v. 80 registers a thread and 66.8 KB of shared memory at
+// N = 257 let three CTAs share an SM.
 // Keys past N get e = 0 and are left out of every max; rows past N are
 // never stored. The sums of s run in another order than a cuBLAS fp32
 // product's, so a bf16 e may land on the neighbouring value of the plain
 // version's: chip_smoke.py holds each output within one bf16 ulp of its
 // row's max |o|.
 //
-// Measured on an H100 (80GB HBM3, 700 W; PERF.md §6, chip_smoke.py and
-// basd_tpu_torch/tools/time_attn_probe.py), device ms at (256, 12, 257, 64)
-// against a 0.1207 ms bound (bytes): full 0.756, tilemax 1.115, nomax
-// 0.675, bf16exp 0.844, noexp 0.305, mxonly 0.280 (the CUDA-core kernel it
-// replaces: 3.97-6.86). The exponentials take 0.395 ms of full's, at 2.5
-// expf a clock per SM; the stream route, whose smaller registers and
-// shared memory let three CTAs share an SM, reads faster there for the
-// exp variants (full 0.662) and slower for noexp and mxonly.
+// Measured on an H100 (80GB HBM3, 700 W; PERF.md §6, chip_smoke.py), device
+// ms at (256, 12, 257, 64) against a 0.1207 ms bound (bytes): full 0.6625,
+// tilemax 0.9070, nomax 0.5630, bf16exp 0.7168, noexp 0.3391, mxonly 0.2905
+// (the CUDA-core kernel it replaces: 3.97-6.86). Holding a warp's 16 x 272
+// scores in its accumulators instead (one pass over the keys, 164-212
+// registers a thread, two CTAs an SM) read slower for four of the six
+// variants (full 0.7859) and was dropped.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast math: IEEE exp).
@@ -76,8 +71,7 @@ constexpr int LD = HD + kPad;   // shared-memory row stride, in bf16
 constexpr int kWarps = 4;       // 16-row warp tiles per CTA
 constexpr int kThreads = kWarps * 32;
 constexpr int kBq = 16 * kWarps;  // query rows per CTA
-constexpr int kRegTiles = 17;   // 16-key tiles held in registers: N <= 272
-constexpr int kChunk = 64;      // stream route: keys per v chunk
+constexpr int kChunk = 64;      // keys per v chunk
 constexpr int kMaxN = 1024;
 constexpr int kMaxSharedBytes = 232448;
 
@@ -311,43 +305,37 @@ __device__ __forceinline__ float group_max(const float* tile_max, int b, int h, 
 }
 
 // Grid (query blocks of kBq rows, H, B), kWarps warps: warp w owns the 16
-// query rows blockIdx.x * kBq + 16 w. kTiles > 0 is the registers route
-// (kTiles 16-key tiles of scores in registers, N <= 16 kTiles), 0 the
-// stream route. Shared memory: k (np rows), v (np rows, or two kChunk-row
-// stages on the stream route), one q tile per warp (later its output
-// staging).
-template <int kVariant, int kTiles>
+// query rows blockIdx.x * kBq + 16 w. Shared memory: k (N rows padded to
+// 16), v (two kChunk-row stages), one q tile per warp (later its output
+// staging). Pass 1 takes the maxima, pass 2 s again, e and e v by chunks.
+template <int kVariant>
 __global__ void __launch_bounds__(kThreads)
 attn_probe_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
                float* __restrict__ tile_max, int H, int N, int group) {
   extern __shared__ __align__(16) unsigned char smem_probe[];
   __shared__ float red[kWarps];
-  constexpr bool kStream = kTiles == 0;
   const int nqb = gridDim.x, qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int np = kStream ? (N + 15) & ~15 : 16 * kTiles;  // keys padded to the mma's k step
+  const int np = (N + 15) & ~15;  // keys padded to the mma's k step
   const int nch = (np + kChunk - 1) / kChunk;
   const int q0 = qb * kBq + warp * 16;
   const long long head = ((long long)b * H + h) * N * HD;
   const long long at = ((long long)b * H + h) * nqb + qb;
   bf16* ks = reinterpret_cast<bf16*>(smem_probe);
   bf16* vs = ks + np * LD;
-  bf16* qs = vs + (kStream ? 2 * kChunk : np) * LD + warp * 16 * LD;
-  auto load_v = [&](int c) {  // stream route: chunk c into stage c & 1
+  bf16* qs = vs + 2 * kChunk * LD + warp * 16 * LD;
+  auto load_v = [&](int c) {  // chunk c into stage c & 1
     cp_rows(vs + (c & 1) * kChunk * LD, v + head, c * kChunk, min(kChunk, np - c * kChunk), N,
             tid, kThreads);
   };
 
-  // k and the warps' q tiles first, then v (or its first chunk)
+  // k and the warps' q tiles first, then v's first chunk
   cp_rows(ks, k + head, 0, np, N, tid, kThreads);
   cp_rows(qs, q + head, q0, 16, N, lane, 32);
   cp_async_commit();
-  if (kVariant != kMaxPass) {
-    if constexpr (kStream) load_v(0);
-    else cp_rows(vs, v + head, 0, np, N, tid, kThreads);
-  }
+  if (kVariant != kMaxPass) load_v(0);
   cp_async_commit();
   const float tmax = kVariant == kTileMax ? group_max(tile_max, b, h, H, nqb, group) : 0.f;
   cp_async_wait<1>();
@@ -362,139 +350,87 @@ attn_probe_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  if constexpr (!kStream) {
-    // ---- registers: the warp's 16 x np scores stay in its accumulators ----
-    float s[kTiles][2][4];
-#pragma unroll
-    for (int kt = 0; kt < kTiles; ++kt) {
-      if (q0 < N) {
-        scores16(s[kt], qa, ks + kt * 16 * LD, lane);
-      } else {  // no valid row: nothing to compute
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[kt][nt][i] = 0.f;
-      }
+  if constexpr (kVariant == kMaxPass || needs_row_max(kVariant)) {
+    float x0 = -INFINITY, x1 = -INFINITY;
+    for (int kb = 0; kb < np; kb += 16) {
+      float s[2][4];
+      scores16(s, qa, ks + kb * LD, lane);
+      tile_row_max(s, kb, N, t, x0, x1);
     }
-    if constexpr (kVariant == kMaxPass || needs_row_max(kVariant)) {
-      float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-      for (int kt = 0; kt < kTiles; ++kt) tile_row_max(s[kt], kt * 16, N, t, x0, x1);
-      if constexpr (kVariant == kMaxPass) {
-        write_cta_max(x0, x1, q0, g, N, red, tile_max, at);
-        return;
-      }
-      m0 = quad_max(x0);
-      m1 = quad_max(x1);
+    if constexpr (kVariant == kMaxPass) {
+      write_cta_max(x0, x1, q0, g, N, red, tile_max, at);
+      return;
     }
-    cp_async_wait<0>();  // v, loaded while the scores were made
+    m0 = quad_max(x0);
+    m1 = quad_max(x1);
+  }
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      load_v(c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    if (q0 >= N) return;  // no barrier follows
-#pragma unroll
-    for (int kt = 0; kt < kTiles; ++kt) {
-      unsigned ea[4];
-      e_fragment<kVariant>(ea, s[kt], kt * 16, N, t, m0, m1);
-      accumulate16(acc, ea, vs + kt * 16 * LD, lane);
-    }
-  } else {
-    // ---- stream: pass 1 the maxima, pass 2 s again, e and e v by chunks ----
-    if constexpr (kVariant == kMaxPass || needs_row_max(kVariant)) {
-      float x0 = -INFINITY, x1 = -INFINITY;
-      for (int kb = 0; kb < np; kb += 16) {
+    const bf16* vw = vs + (c & 1) * kChunk * LD;
+    const int rows = min(kChunk, np - c * kChunk);
+    if (q0 < N)
+      for (int j = 0; j < rows; j += 16) {
         float s[2][4];
-        scores16(s, qa, ks + kb * LD, lane);
-        tile_row_max(s, kb, N, t, x0, x1);
+        scores16(s, qa, ks + (c * kChunk + j) * LD, lane);
+        unsigned ea[4];
+        e_fragment<kVariant>(ea, s, c * kChunk + j, N, t, m0, m1);
+        accumulate16(acc, ea, vw + j * LD, lane);
       }
-      if constexpr (kVariant == kMaxPass) {
-        write_cta_max(x0, x1, q0, g, N, red, tile_max, at);
-        return;
-      }
-      m0 = quad_max(x0);
-      m1 = quad_max(x1);
-    }
-    for (int c = 0; c < nch; ++c) {
-      if (c + 1 < nch) {
-        load_v(c + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* vw = vs + (c & 1) * kChunk * LD;
-      const int rows = min(kChunk, np - c * kChunk);
-      if (q0 < N)
-        for (int j = 0; j < rows; j += 16) {
-          float s[2][4];
-          scores16(s, qa, ks + (c * kChunk + j) * LD, lane);
-          unsigned ea[4];
-          e_fragment<kVariant>(ea, s, c * kChunk + j, N, t, m0, m1);
-          accumulate16(acc, ea, vw + j * LD, lane);
-        }
-      __syncthreads();
-    }
+    __syncthreads();
   }
   store_tile(qs, acc, o + head, q0, N, lane);
 }
 
-size_t smem_bytes(int n, bool stream) {
+size_t smem_bytes(int n) {
   const size_t np = (n + 15) & ~15;
-  const size_t rows = stream ? np + 2 * kChunk : 2 * (size_t)(16 * kRegTiles);
-  return sizeof(bf16) * (rows + kBq) * LD;
+  return sizeof(bf16) * (np + 2 * kChunk + kBq) * LD;
 }
 
-template <int kVariant, int kTiles>
+template <int kVariant>
 int launch_one(const void* q, const void* k, const void* v, void* o, void* tile_max, int B,
                int H, int N, int group, void* stream) {
-  const size_t smem = smem_bytes(N, kTiles == 0);
+  const size_t smem = smem_bytes(N);
   if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_probe_mma<kVariant, kTiles>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attn_probe_mma<kVariant>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((N + kBq - 1) / kBq, H, B);
-  attn_probe_mma<kVariant, kTiles><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  attn_probe_mma<kVariant><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)tile_max, H, N, group);
   return (int)cudaGetLastError();
-}
-
-template <int kTiles>
-int launch_route(const void* q, const void* k, const void* v, void* o, void* tile_max,
-                 int B, int H, int N, int hd, int group, int variant, void* stream) {
-  if (B < 1 || H < 1 || B > 65535 || H > 65535 || N < 1 || hd != HD)
-    return (int)cudaErrorInvalidValue;
-  if (N > (kTiles ? 16 * kTiles : kMaxN)) return (int)cudaErrorInvalidValue;
-  if ((variant == kTileMax || variant == kMaxPass) &&
-      (tile_max == nullptr || group < 1 || B % group != 0))
-    return (int)cudaErrorInvalidValue;
-  switch (variant) {
-    case kFull: return launch_one<kFull, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kTileMax: return launch_one<kTileMax, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kNoMax: return launch_one<kNoMax, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kBf16Exp: return launch_one<kBf16Exp, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kNoExp: return launch_one<kNoExp, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kMxOnly: return launch_one<kMxOnly, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    case kMaxPass: return launch_one<kMaxPass, kTiles>(q, k, v, o, tile_max, B, H, N, group, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // One launch of variant `variant` (0..5 as in the enum above; 6 is the
 // tilemax first launch, which writes `tile_max` (B, H, ceil(N / 64)) and
-// not `o`). q, k, v, o are contiguous (B, H, N, 64) bf16, 16-byte aligned.
-// The registers route takes N <= 272, the stream route any N <= 1024.
-extern "C" int basd_attn_probe_registers(const void* q, const void* k, const void* v,
-                                         void* o, void* tile_max, int B, int H, int N,
-                                         int hd, int group, int variant, void* stream) {
-  return launch_route<kRegTiles>(q, k, v, o, tile_max, B, H, N, hd, group, variant, stream);
-}
-
-extern "C" int basd_attn_probe_stream(const void* q, const void* k, const void* v, void* o,
-                                      void* tile_max, int B, int H, int N, int hd, int group,
-                                      int variant, void* stream) {
-  return launch_route<0>(q, k, v, o, tile_max, B, H, N, hd, group, variant, stream);
+// not `o`). q, k, v, o are contiguous (B, H, N, 64) bf16, 16-byte aligned,
+// 1 <= N <= 1024.
+extern "C" int basd_attn_probe(const void* q, const void* k, const void* v, void* o,
+                               void* tile_max, int B, int H, int N, int hd, int group,
+                               int variant, void* stream) {
+  if (B < 1 || H < 1 || B > 65535 || H > 65535 || N < 1 || N > kMaxN || hd != HD)
+    return (int)cudaErrorInvalidValue;
+  if ((variant == kTileMax || variant == kMaxPass) &&
+      (tile_max == nullptr || group < 1 || B % group != 0))
+    return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case kFull: return launch_one<kFull>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kTileMax: return launch_one<kTileMax>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kNoMax: return launch_one<kNoMax>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kBf16Exp: return launch_one<kBf16Exp>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kNoExp: return launch_one<kNoExp>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kMxOnly: return launch_one<kMxOnly>(q, k, v, o, tile_max, B, H, N, group, stream);
+    case kMaxPass: return launch_one<kMaxPass>(q, k, v, o, tile_max, B, H, N, group, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

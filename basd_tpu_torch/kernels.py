@@ -9,7 +9,10 @@ loaded. Nothing is built while a module is imported.
 `LAUNCHES` counts, per kernel wrapper, the calls that launched a kernel on
 the card. Wrappers add one where they launch and nowhere else; callers that
 want to show a run went through the kernels reset it with
-`reset_launches()` and read it afterwards.
+`reset_launches()` and read it afterwards. Two wrappers launch twice in
+one call: K3's `jacobi_eigh` above n = 96 (the rotations, then the V^T
+replay) counts the call once; K6's `attn_probe` tilemax (the tile maxima,
+then the variant) counts each launch.
 """
 
 from __future__ import annotations
@@ -55,10 +58,8 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         "basd_warp_plane": [_P] * 3 + [_I] * 3 + [_P],
     },
     "attn_probe": {
-        # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream: one
-        # entry point per route (ops/attn_probe.py:probe_route)
-        "basd_attn_probe_registers": [_P] * 5 + [_I] * 6 + [_P],
-        "basd_attn_probe_stream": [_P] * 5 + [_I] * 6 + [_P],
+        # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream
+        "basd_attn_probe": [_P] * 5 + [_I] * 6 + [_P],
     },
 }
 

@@ -20,9 +20,9 @@ kernel takes hd = 64, the head_dim of every BASD ViT attention):
 
 The tensor's device picks the implementation: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version. On the card both
-products run on the tensor cores, by one of two routes that `probe_route`
-picks by N. tilemax is two launches on the card (the tile maxima, then the
-variant), and the launch counter `attn_probe` counts both.
+products run on the tensor cores, for any 1 <= N <= 1024. tilemax is two
+launches on the card (the tile maxima, then the variant), and the launch
+counter `attn_probe` counts both.
 """
 
 from __future__ import annotations
@@ -36,19 +36,6 @@ _MAX_PASS = 6  # the kernel's tilemax first launch
 MAX_SEQ = 1024
 HEAD_DIM = 64  # every BASD ViT attention's head_dim
 _QUERY_BLOCK = 64  # query rows per CTA: tilemax's first launch writes one max each
-MAX_SEQ_REGISTERS = 272  # 17 tiles of 16 keys, the scores a warp holds in registers
-
-
-def probe_route(n: int) -> str:
-    """K6's route at sequence length n, the one `_probe_cuda` launches:
-    "registers" (`basd_attn_probe_registers`, n <= 272: a warp's scores
-    for all keys held in its mma accumulators from the product to the
-    pack) or "stream" (`basd_attn_probe_stream`, to n = 1024: the keys
-    taken twice, once for the maxima and once for e and e v, v streamed in
-    64-key chunks)."""
-    if not 1 <= n <= MAX_SEQ:
-        raise ValueError(f"attention probe kernel takes 1 <= N <= {MAX_SEQ}, got {n}")
-    return "registers" if n <= MAX_SEQ_REGISTERS else "stream"
 
 
 def probe_flops(b: int, h: int, n: int, hd: int) -> int:
@@ -107,25 +94,20 @@ def _stream(q: torch.Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
-def _probe_cuda(q, k, v, variant: str, group: int, route: str | None = None) -> torch.Tensor:
-    """K6 on the card by `probe_route(N)`'s route, or by `route` where a
-    check holds one route against the other at the same N (the stream
-    route takes any N; the registers route refuses N > 272)."""
+def _probe_cuda(q, k, v, variant: str, group: int) -> torch.Tensor:
     _check_cuda(q, k, v, variant, group)
     b, h, n, hd = q.shape
-    route = route or probe_route(n)
     o = torch.empty_like(q)
     lib = kernels.library("attn_probe")
     stream = _stream(q)
-    entry = getattr(lib, f"basd_attn_probe_{route}")
 
     def launch(code: int, tile_max) -> None:
-        status = entry(
+        status = lib.basd_attn_probe(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if tile_max is None else tile_max.data_ptr(), b, h, n, hd,
             group, code, stream,
         )
-        kernels.check(status, f"attn_probe route {route}")
+        kernels.check(status, "basd_attn_probe")
         kernels.LAUNCHES["attn_probe"] += 1
 
     tile_max = None

@@ -10,7 +10,7 @@ Each reading is `tools/timing.py:kernel_ms` on the wrapper's launches
 the card; tilemax's two launches count as one call). The cases are read in
 turn, `readings` times over, and a case's time is the median of its
 readings. Prints one JSON line: the library that ran (named by its
-source's hash), the card's name and power limit, and per case its route,
+source's hash), the card's name and power limit, and per case its
 readings, median ms and bound (q, k, v read once and o written once at
 3.35 TB/s, or the FLOPs at 989 TFLOP/s bf16, whichever is larger).
 
@@ -51,15 +51,13 @@ def main(*, readings: int = 7, group: int = 8) -> dict:
         for (shape, variant), t in times.items():
             q, k, v = inputs[shape]
             t.append(kernel_ms(lambda: attn_probe._probe_cuda(q, k, v, variant, group), dev))
-    # a checkout without probe_route runs its one kernel
-    route_of = getattr(attn_probe, "probe_route", lambda n: "single")
     rows = {}
     for (shape, variant), t in times.items():
         b, h, n, hd = shape
         bound_ms = 1e3 * max(4 * b * h * n * hd * 2 / HBM_BYTES_PER_S,
                              attn_probe.probe_flops(b, h, n, hd) / BF16_FLOPS)
-        rows[f"{variant} {shape}"] = dict(route=route_of(n), readings=t,
-                                         ms=float(np.median(t)), bound_ms=bound_ms)
+        rows[f"{variant} {shape}"] = dict(readings=t, ms=float(np.median(t)),
+                                         bound_ms=bound_ms)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]

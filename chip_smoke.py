@@ -35,10 +35,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      smallest and largest n of each route (4, 192, 238);
      K3 at (48, 192, 192), its packed_log route, on the sweeps probe's two
      spectrum families, by device time alone at sweeps 6 and 12; K6 in all
-     six variants at the teacher's attention shape (256, 12, 257, 64) on
-     its registers route (also by device time alone, and held bit for bit
-     against its stream route there) and at N = 1024 and 300 on its stream
-     route, with K1 checked on the same q, k, v. At these tool shapes the
+     six variants at the teacher's attention shape (256, 12, 257, 64)
+     (also by device time alone) and at N = 1024 and 300, with K1
+     checked on the same q, k, v. At these tool shapes the
      kernels' event-loop times (K5,
      K3 at n = 192, K6 and K1 beside it) are the tools' readings in phase
      5b, and the tuner reuses the features staged here;
@@ -178,18 +177,17 @@ def main() -> int:
     if len(hmma) != 3 * 8 or min(hmma.values()) == 0:
         raise AssertionError(f"bf16 attention kernels without HMMA: {hmma}")
     print(f"sass: HMMA instructions per bf16 attention kernel {hmma}")
-    # K6's kernels too: one per variant (and tilemax's first launch) on each
-    # route (17 tiles of keys in registers, or streamed)
+    # K6's kernels too: one per variant and tilemax's first launch
     hmma6, fn = {}, None
     for line in kernels.sass("attn_probe").splitlines():
         if "Function :" in line:
-            found = re.search(r"attn_probe_mmaILi(\d+)ELi(\d+)E", line)
-            fn = f"attn_probe_mma<{found.group(1)}, {found.group(2)}>" if found else None
+            found = re.search(r"attn_probe_mmaILi(\d+)E", line)
+            fn = f"attn_probe_mma<{found.group(1)}>" if found else None
             if fn:
                 hmma6[fn] = 0
         elif fn and "HMMA" in line:
             hmma6[fn] += 1
-    if len(hmma6) != 7 * 2 or min(hmma6.values()) == 0:
+    if len(hmma6) != 7 or min(hmma6.values()) == 0:
         raise AssertionError(f"attention probe kernels without HMMA: {hmma6}")
     print(f"sass: HMMA instructions per attention probe kernel {hmma6}")
     # the machine code of one rotation step: the instructions between the
@@ -781,17 +779,14 @@ def main() -> int:
               f"({row['bound_by_sweeps6']})")
 
     # K6 in all six variants at the teacher's attention shape, on the
-    # attention probe's own inputs, on its registers route (N = 257 <= 272):
-    # each output element within one bf16 ulp of its row's max |o| of the
+    # attention probe's own inputs: each output element within one bf16 ulp of its row's max |o| of the
     # plain version's. The tensor cores sum s in another order than the
     # plain version's cuBLAS fp32 product, so a bf16 e may land on the
     # neighbouring value, and a change of one ulp of one e moves o by up to
     # that ulp times |v|: where o = e v cancels to much less than its terms,
     # that is more than one ulp of o's own value (1,205 of 50.5 M elements of
     # `full` on the card), so the count of such elements is printed beside
-    # the check. Also bit for bit the stream route's on the same inputs (the
-    # same mma instructions on the same operands in the same order); device
-    # time per variant by `kernel_ms` (tilemax's two launches together). No
+    # the check. Device time per variant by `kernel_ms` (tilemax's two launches together). No
     # PyTorch call computes these variants; SDPA, softmax attention on the
     # same q, k, v, is timed beside them as the reference. The attention
     # probe reads the kernel's and K1's event loops in phase 5b.
@@ -846,45 +841,35 @@ def main() -> int:
                 f"than one bf16 ulp of their row's max |o| from the plain version (max "
                 f"{diff.max().item()})")
         return got, dict(max_abs_err=diff.max().item(), differing=int((diff > 0).sum()),
-                         over_own_ulp=int((diff > bf16_ulp(want.abs())).sum()),
-                         route=attn_probe.probe_route(q.shape[2]))
+                         over_own_ulp=int((diff > bf16_ulp(want.abs())).sum()))
 
     for variant in attn_probe.VARIANTS:
         got, row = probe_check(q6, k6, v6, variant, (pb, ph, pn, phd))
-        stream = attn_probe._probe_cuda(q6, k6, v6, variant, 8, route="stream")
-        torch.cuda.synchronize()
-        if not torch.equal(got, stream):
-            raise AssertionError(f"attn_probe {variant}: the registers and stream routes "
-                                 f"differ at N = {pn}")
-        del got, stream
+        del got
         row.update(
             device_ms=kernel_ms(lambda: attn_probe._probe_cuda(q6, k6, v6, variant, 8), dev),
-            stream_device_ms=kernel_ms(
-                lambda: attn_probe._probe_cuda(q6, k6, v6, variant, 8, route="stream"), dev),
             plain_ms=timed_ms(lambda: attn_probe.probe_attention_plain(
                 q6, k6, v6, variant=variant), 2),
             library_ms=None, k1_plain_ms=k1_plain_ms,
             k1_bound_ms=k1_bnd, sdpa_ms=sdpa_ms, bound_ms=bnd6, bound_by=by6,
         )
         report.setdefault("attn_probe", {})[f"{variant} {(pb, ph, pn, phd)}"] = row
-        print(f"kernel attn_probe {variant} {(pb, ph, pn, phd)} (route {row['route']}): "
+        print(f"kernel attn_probe {variant} {(pb, ph, pn, phd)}: "
               f"max abs err {row['max_abs_err']:.3g} ({row['differing']} elements differ, "
               f"{row['over_own_ulp']} by more than one bf16 ulp of their own value; tol 1 "
-              f"bf16 ulp of the row's max |o|), bit for bit the stream route's; device "
-              f"{row['device_ms']:.4f} (stream route {row['stream_device_ms']:.4f}) plain "
+              f"bf16 ulp of the row's max |o|); device {row['device_ms']:.4f} plain "
               f"{row['plain_ms']:.4f} bound {bnd6:.4f} ({by6}); K1 fwd plain "
               f"{k1_plain_ms:.4f}, bound {k1_bnd:.4f}; sdpa {sdpa_ms:.4f} at ({pb}, {pn}, "
               f"{ph * phd}) H={ph}")
     del cov, q6, k6, v6, q6s, qn, kn, vn
-    # K6 on its stream route, where the scores do not fit in registers: at
-    # the largest N (1024) and at an N with a partial chunk of v and of the
-    # last query block (300), every variant within the same tolerance
+    # K6 at the largest N (1024) and at an N with a partial chunk of v and
+    # of the last query block (300), every variant within the same tolerance
     for n in (1024, 300):
         qkv = probe_attn_internals.make_inputs(16, 2, n, phd, dev, seed=n)
         for variant in attn_probe.VARIANTS:
             _, row = probe_check(*qkv, variant, (16, 2, n, phd))
             report["attn_probe"][f"{variant} {(16, 2, n, phd)}"] = row
-            print(f"kernel attn_probe {variant} {(16, 2, n, phd)} (route {row['route']}): "
+            print(f"kernel attn_probe {variant} {(16, 2, n, phd)}: "
                   f"max abs err {row['max_abs_err']:.3g}, {row['over_own_ulp']} elements by "
                   "more than one bf16 ulp of their own value (tol 1 bf16 ulp of the row's "
                   "max |o|)")
@@ -1129,7 +1114,7 @@ def main() -> int:
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
                 "orth_err", "eig3_err", "us_per_step", "route", "k1_ms",
                 "k1_plain_ms", "k1_bound_ms", "sdpa_ms", "differing",
-                "stream_device_ms", "w_equals_k5", "k5_device_ms", "over_own_ulp",
+                "w_equals_k5", "k5_device_ms", "over_own_ulp",
                 *(f"{k}_sweeps{sw}" for sw in (6, 12)
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                             "us_per_step", "k5_device_ms")))

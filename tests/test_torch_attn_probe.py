@@ -104,25 +104,23 @@ def test_variants_differ_and_flops():
 
 class _RecordingLibrary:
     """Stands in for the attention probe's kernel library: records each
-    entry point called and its arguments, and returns success."""
+    call of its entry point and the arguments, and returns success."""
 
     def __init__(self):
         self.calls = []
 
-    def __getattr__(self, name):
-        if not name.startswith("basd_attn_probe_"):
-            raise AttributeError(name)
-        return lambda *args: self.calls.append((name, args)) or 0
+    def basd_attn_probe(self, *args):
+        self.calls.append(args)
+        return 0
 
 
 @pytest.mark.parametrize("variant", tprobe.VARIANTS)
 @pytest.mark.parametrize("n", [1, 17, 257, 272, 273, 1024])
-def test_launch_takes_the_route_of_probe_route(n, variant, monkeypatch):
-    """`_probe_cuda` launches the entry point of the route that
-    `probe_route` names (registers to N = 272, stream above), with (B, H,
-    N, hd, group, variant code); tilemax first launches the tile maxima
-    (code 6) into a (B, H, ceil(N / 64)) fp32 scratch that its second
-    launch reads; one count per launch."""
+def test_launch_passes_the_shape_and_variant_code(n, variant, monkeypatch):
+    """`_probe_cuda` calls `basd_attn_probe` with (B, H, N, hd, group,
+    variant code) at every N it takes, from one query row to 1024; tilemax
+    first launches the tile maxima (code 6) into a (B, H, ceil(N / 64))
+    fp32 scratch that its second launch reads; one count per launch."""
     lib = _RecordingLibrary()
     made = []
     empty = torch.empty
@@ -132,28 +130,27 @@ def test_launch_takes_the_route_of_probe_route(n, variant, monkeypatch):
     monkeypatch.setitem(tprobe.kernels.LAUNCHES, "attn_probe", 0)
     q, k, v = (torch.zeros((8, 2, n, 64), dtype=torch.bfloat16) for _ in range(3))
     o = tprobe._probe_cuda(q, k, v, variant, 8)
-    route = tprobe.probe_route(n)
-    assert route == ("registers" if n <= 272 else "stream")
     codes = ([6] if variant == "tilemax" else []) + [tprobe.VARIANTS.index(variant)]
-    assert [name for name, _ in lib.calls] == [f"basd_attn_probe_{route}"] * len(codes)
-    for (_, args), code in zip(lib.calls, codes):
+    assert len(lib.calls) == len(codes)
+    for args, code in zip(lib.calls, codes):
         assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
         assert args[5:11] == (8, 2, n, 64, 8, code)
     if variant == "tilemax":
-        [tile_max] = [t for t in made if t.data_ptr() == lib.calls[0][1][4]]
+        [tile_max] = [t for t in made if t.data_ptr() == lib.calls[0][4]]
         assert tile_max.shape == (8, 2, -(-n // 64)) and tile_max.dtype == torch.float32
-        assert lib.calls[1][1][4] == tile_max.data_ptr()
+        assert lib.calls[1][4] == tile_max.data_ptr()
     else:
-        assert lib.calls[0][1][4] is None
+        assert lib.calls[0][4] is None
     assert tprobe.kernels.LAUNCHES["attn_probe"] == len(codes)
 
 
-def test_probe_route_and_wrapper_checks():
-    assert tprobe.probe_route(1) == tprobe.probe_route(272) == "registers"
-    assert tprobe.probe_route(273) == tprobe.probe_route(1024) == "stream"
+def test_wrapper_checks():
+    """The wrapper refuses, before any library loads, an N outside 1..1024
+    and an operand that is not 16-byte aligned."""
     for bad in (0, 1025):
+        q = torch.zeros((8, 2, bad, 64), dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="1 <= N <= 1024"):
-            tprobe.probe_route(bad)
+            tprobe._probe_cuda(q, q, q, "full", 8)
     q = torch.zeros((8, 2, 9, 64), dtype=torch.bfloat16)
     shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
