@@ -7,8 +7,12 @@ timm/DINOv2 state-dict keys; every layer casts its inputs and weights to
 `ViTConfig.dtype` (bf16 on the main path) as flax's `dtype=` does, while
 LayerNorm statistics, GELU, the softmax and the CLS importance run in fp32
 and the classifier head in fp32. Images are (B, H, W, 3), as in the JAX
-package. Attention inside the kernel gate goes through
-`ops.attention.fused_attention` (the hand-written kernels on the card).
+package. Attention of a ViT with a CLS token inside the kernel gate goes
+through `ops.attention.fused_attention` (the hand-written kernels on the
+card); a ViT without one takes the einsum chain, whose normalized attention
+its importance needs. `ViTConfig.remat` recomputes each block in the
+backward (`torch.utils.checkpoint`), with the block's drop-path draws made
+before the checkpointed call so the recomputation sees the same masks.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from basd_tpu_torch.ops.activations import gelu
 from basd_tpu_torch.ops.attention import (
+    attention_mean_importance,
     fused_attention,
     supports_fused,
     xla_attention_ref,
@@ -48,6 +54,7 @@ class ViTConfig:
     # DINOv2 LayerScale gamma init (1e-5); None = plain ViT
     layer_scale_init: float | None = None
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -76,18 +83,24 @@ def _trunc_normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth on the residual branch."""
+    """Per-sample stochastic depth on the residual branch: `draw` makes the
+    per-sample uniform draw (None where every sample is kept) and `forward`
+    applies it."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x, train: bool, generator: torch.Generator | None):
+    def draw(self, x, train: bool, generator: torch.Generator | None):
         if not train or self.rate == 0.0:
+            return None
+        return torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
+                          generator=generator)
+
+    def forward(self, x, u: torch.Tensor | None):
+        if u is None:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
-                       generator=generator)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -111,10 +124,6 @@ class Attention(nn.Module):
         return torch.softmax(cls_logits, dim=-1)[:, :, 1:].mean(dim=1)
 
     def forward(self, x, dtype):
-        if not self.has_cls_token:
-            raise NotImplementedError(
-                "no-CLS attention importance is not ported yet (ROADMAP M6)"
-            )
         b, n, _ = x.shape
         d = self.dim
         hd = d // self.num_heads
@@ -122,6 +131,11 @@ class Attention(nn.Module):
         qkv = _linear(x, self.qkv, dtype)  # (B, N, 3D)
         q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
         q_scaled = (q.float() * scale).to(dtype)
+        if not self.has_cls_token:
+            # the importance averages the normalized attention over heads
+            # and queries, which the kernel never forms: never K1 here
+            out, importance = attention_mean_importance(q_scaled, k, v, hd)
+            return _linear(out, self.proj, dtype), importance
         if supports_fused(n, d, hd):
             out = fused_attention(q_scaled, k, v, hd)
         else:
@@ -168,11 +182,16 @@ class Block(nn.Module):
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x, dtype, train, generator):
+    def draw(self, x, train, generator):
+        """The block's two drop-path draws, in the order the paths apply."""
+        return (self.drop_path1.draw(x, train, generator),
+                self.drop_path2.draw(x, train, generator))
+
+    def forward(self, x, dtype, u1, u2):
         y, importance = self.attn(_layer_norm(x, self.norm1), dtype)
-        x = x + self.drop_path1(self.ls1(y), train, generator)
+        x = x + self.drop_path1(self.ls1(y), u1)
         y = self.mlp(_layer_norm(x, self.norm2), dtype)
-        x = x + self.drop_path2(self.ls2(y), train, generator)
+        x = x + self.drop_path2(self.ls2(y), u2)
         return x, importance
 
 
@@ -194,7 +213,8 @@ class VisionTransformer(nn.Module):
         self.capture_layers = tuple(capture_layers)
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        if cfg.has_cls_token:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         n_tok = cfg.num_patches + int(cfg.has_cls_token)
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tok, d))
         self.blocks = nn.ModuleList(
@@ -237,7 +257,8 @@ class VisionTransformer(nn.Module):
                 mod.bias.zero_()
             elif isinstance(mod, LayerScale):
                 mod.gamma.fill_(mod.init)
-        draw(self.cls_token, lambda w: _trunc_normal_(w, 0.02, g))
+        if self.config.has_cls_token:
+            draw(self.cls_token, lambda w: _trunc_normal_(w, 0.02, g))
         draw(self.pos_embed, lambda w: _trunc_normal_(w, 0.02, g))
 
     def forward(
@@ -261,9 +282,17 @@ class VisionTransformer(nn.Module):
             x = torch.cat([self.cls_token.to(dt).expand(b, 1, -1), x], dim=1)
         x = x + self.pos_embed.to(dt)
 
+        remat = cfg.remat and torch.is_grad_enabled()
         tokens, imps = [], []
         for i, blk in enumerate(self.blocks):
-            x, importance = blk(x, dt, train, generator)
+            draws = blk.draw(x, train, generator)
+            if remat:
+                # the body draws nothing from any generator, so no RNG
+                # state needs to be kept for the recomputation
+                x, importance = checkpoint(blk, x, dt, *draws, use_reentrant=False,
+                                           preserve_rng_state=False)
+            else:
+                x, importance = blk(x, dt, *draws)
             if i in self.capture_layers:
                 tokens.append(x[:, 1:] if cfg.has_cls_token else x)
                 imps.append(importance)

@@ -206,18 +206,33 @@ def fused_attention(q, k, v, head_dim: int) -> torch.Tensor:
     return _FusedAttention.apply(q, k, v, head_dim)
 
 
-def xla_attention_ref(q, k, v, head_dim: int) -> torch.Tensor:
-    """The ViT einsum-chain contract (`ops/attention.py:xla_attention_ref`):
-    logits in the compute dtype, fp32 softmax, unrounded fp32 denom. The
-    model's path for shapes outside `supports_fused`."""
-    dt = q.dtype
+def _einsum_softmax(q, k, v, head_dim: int):
+    """The einsum chain's unnormalized softmax: e = exp(s - max s) in fp32
+    from logits in the compute dtype, its fp32 row sums (B, H, N, 1), and v
+    as (B, H, N, hd)."""
     qh, kh, vh = (
         x.reshape(x.shape[0], x.shape[1], -1, head_dim).transpose(1, 2)
         for x in (q, k, v)
     )
     lf = (qh @ kh.transpose(-1, -2)).float()
-    m = lf.amax(dim=-1, keepdim=True)
-    e = torch.exp(lf - m)
-    denom = e.sum(dim=-1, keepdim=True)
-    out = (e.to(dt).float() @ vh.float()) / denom
-    return _unheads(out, dt)
+    e = torch.exp(lf - lf.amax(dim=-1, keepdim=True))
+    return e, e.sum(dim=-1, keepdim=True), vh
+
+
+def xla_attention_ref(q, k, v, head_dim: int) -> torch.Tensor:
+    """The ViT einsum-chain contract (`ops/attention.py:xla_attention_ref`):
+    logits in the compute dtype, fp32 softmax, unrounded fp32 denom. The
+    model's path for shapes outside `supports_fused`."""
+    e, denom, vh = _einsum_softmax(q, k, v, head_dim)
+    return _unheads((e.to(q.dtype).float() @ vh.float()) / denom, q.dtype)
+
+
+def attention_mean_importance(q, k, v, head_dim: int):
+    """The einsum chain (`xla_attention_ref`'s output, deferred
+    normalization) and the normalized attention averaged over heads and
+    queries, (B, N) fp32: the attention of a ViT without a CLS token
+    (`basd_tpu/models/vit.py:190-208`). It needs the (B, H, N, N)
+    attention, so it never takes the kernel."""
+    e, denom, vh = _einsum_softmax(q, k, v, head_dim)
+    out = _unheads((e.to(q.dtype).float() @ vh.float()) / denom, q.dtype)
+    return out, (e / denom).mean(dim=(1, 2))

@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      the shapes of the paths below, with its stated tolerance, timed beside
      the plain version and a PyTorch library yardstick where one exists:
      K1-K4 at the train step's shapes, K1 and K2 also at the Table-1
-     student's (256, 197, 384) H=6 and at the gate's edges, bf16 K1/K2 and
+     student's (256, 197, 384) H=6 and the Table-2 student's (256, 197,
+     192) H=3, K1 at the Table-1 ViT-L/14 teacher's (256, 257, 1024) H=16,
+     K1 and K2 at the gate's edges, bf16 K1/K2 and
      SDPA also by device time alone (the host kept ahead of the card by a
      spin kernel); K3 on the main path's own eigh inputs, timed also by
      device time alone per launch and per rotation step, on wide-spectrum
@@ -48,12 +50,21 @@ Phases, in order; any failure raises and the exit code is not 0:
      (`basd_tpu_torch.tools.tune_spectral`, `probe_jacobi_sweeps`,
      `probe_attn_internals`), counters reset just before and read just
      after each;
-  6. reference: one small configuration stepped with augment=True on the
+  5c. the 224 px steps at full width, batch 256 (bench.py's `--imagenet
+     --teacher dinov2_vitl14` and `--cross-arch` arms): Table-1 (DINOv2
+     ViT-L/14 teacher, ViT-S/16 student) and Table-2 (ConvNeXt-V2-Tiny
+     teacher, DeiT-Tiny/16 student), staged as bench.py stages them, 1 + 2
+     augmented steps each with the exact launches per step, counters reset
+     just before and read just after; K3 at Table-2's (4, K, K); the ViT-L
+     teacher's intrinsic dimension and the student it derives;
+  6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
-     views, losses and ranks compared;
-  7. profile: one main-path step under torch.profiler, device time by
-     kernel and host time by stage, and K4's device time from phase 4
-     (the profiler records no launch of it);
+     views, losses and ranks compared, with a ViT and a ConvNeXt-V2
+     teacher; a ResNet teacher's forward and a no-CLS ViT's forward and
+     backward on both; a remat=True step against remat=False on the card;
+  7. profile: one main-path step and one Table-1 step under
+     torch.profiler, device time by kernel and host time by stage, and K4's
+     device time from phase 4 (profiles have dropped its one launch);
 then a JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}} last.
 """
@@ -70,6 +81,7 @@ import numpy as np
 
 MAIN_STEPS = 6
 DETERMINISTIC_STEPS = 2
+STEPS_224 = 2  # timed steps after the first at 224 px
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TEACHER_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 DATASET_STATS = ((0.507, 0.487, 0.441), (0.267, 0.256, 0.276))
@@ -100,8 +112,16 @@ def main() -> int:
         extraction_points,
         init_selector,
     )
-    from basd_tpu_torch.models import create_student, load_teacher
+    from basd_tpu_torch.models import (
+        VisionTransformer,
+        ViTConfig,
+        create_student,
+        derive_student_arch,
+        estimate_intrinsic_dim,
+        load_teacher,
+    )
     from basd_tpu_torch.ops import attention as attn
+    from basd_tpu_torch.ops import augment as augment_ops
     from basd_tpu_torch.ops import warp_kernel as wk
     from basd_tpu_torch.ops.mixup import mixup_cutmix
     from basd_tpu_torch.ops.preprocess import dual_view, eval_view
@@ -229,7 +249,7 @@ def main() -> int:
     student, cfg = create_student(
         "vit_tiny_patch16", num_classes=num_classes, drop_path_rate=0.05,
         img_size=img, arch_overrides={"patch_size": patch},
-        capture_layers=points, dtype=bf16, device=dev,
+        capture_layers=points, dtype=bf16, remat=False, device=dev,
     )
     selector = init_selector(1, len(points), cfg.embed_dim,
                              teacher.spec.embed_dim, device=dev)
@@ -266,9 +286,12 @@ def main() -> int:
     # loop of calls (which a kernel of a few us leaves at the host's
     # enqueue rate) and `device_ms` by CUDA events around calls that the
     # host enqueued while a spin kernel held the card (`kernel_ms`).
-    att_cases = [("student", 128, 65, 192, 3), ("teacher", 128, 5, 768, 12),
-                 ("Table-1 student", 256, 197, 384, 6)]
-    bwd_cases = ("student", "Table-1 student")
+    att_cases = [("student", 128, 65, 192, 3, (bf16, f32)),
+                 ("teacher", 128, 5, 768, 12, (bf16, f32)),
+                 ("Table-1 student", 256, 197, 384, 6, (bf16, f32)),
+                 ("Table-2 student", 256, 197, 192, 3, (bf16,)),
+                 ("Table-1 ViT-L teacher", 256, 257, 1024, 16, (bf16,))]
+    bwd_cases = ("student", "Table-1 student", "Table-2 student")
     fmt = lambda x: "-" if x is None else f"{x:.4f}"
 
     def attention_row(what, errs, tol, dtype, bnd, kernel, plain, library):
@@ -288,9 +311,9 @@ def main() -> int:
               f"{fmt(row['library_device_ms'])}) bound {bnd[0]:.4f} ({bnd[1]})")
         return row
 
-    for label, b, n, d, h in att_cases:
+    for label, b, n, d, h, dtypes in att_cases:
         hd = d // h
-        for dtype in (bf16, f32):
+        for dtype in dtypes:
             tol = 2e-2 if dtype == bf16 else 1e-5
             dname = str(dtype).split(".")[-1]
             case = f"{label} B={b} N={n} D={d} H={h} {dname}"
@@ -876,60 +899,103 @@ def main() -> int:
         del qkv
 
     # ---- 5. the main path: bench.py's augmented step, then augment=False ----
-    def main_path(augment, steps):
+    def teacher_layers(tch) -> int:
+        """Token layers a teacher gives: every block of a ViT, one for a CNN."""
+        return tch.spec.depth if tch.spec.feature_format == "token" else 1
+
+    def per_step_launches(scfg, tch, pts, k, augment) -> dict:
+        """Each kernel's launches in one train step of a configuration: K1 in
+        every block, teacher's and student's, of a ViT with a CLS token inside
+        the kernel gate (a student block twice under remat: its forward runs
+        again in the backward), K2 in every such student block, K3 in each of
+        the selector's three eighs (teacher and student Rayleigh-Ritz, the
+        principal angles) that the Jacobi gate takes, K4 once per augmented
+        view."""
+        def fused_blocks(c):
+            ok = c.has_cls_token and attn.supports_fused(
+                c.num_patches + 1, c.embed_dim, c.embed_dim // c.num_heads)
+            return c.depth if ok else 0
+
+        student_blocks = fused_blocks(scfg)
+        teacher_blocks = fused_blocks(tch.module.config) if tch.spec.family == "vit" else 0
+        l, p = teacher_layers(tch), len(pts)
+        return {"attention_fwd": student_blocks * (2 if scfg.remat else 1) + teacher_blocks,
+                "attention_bwd": student_blocks,
+                "jacobi_eigh": sum(use_jacobi(sh) for sh in ((l, k, k), (p, k, k), (p, l, k, k))),
+                "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0}
+
+    def run_steps(label, stu, tch, sel, pts, k, size, raw_size, ims, lbs, ncls, augment,
+                  steps):
+        """`steps` train steps of bench.py's step (augment=True) or the
+        deterministic one, with the counters reset just before and read just
+        after: every step checked (finite loss, (P, L) mixing weights whose
+        rows sum to 1, MP ranks in [1, K], its exact launches)."""
         init_fn, step_fn = make_train_step(
-            student, teacher,
+            stu, tch,
             learning_rate=5e-4, weight_decay=0.05, warmup_steps=1000,
-            label_smoothing=0.01, img_size=img, crop_ratio=img / raw,
+            label_smoothing=0.01, img_size=size, crop_ratio=size / raw_size,
             teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
-            num_classes=num_classes, subspace_k=k_cal, augment=augment,
+            num_classes=ncls, subspace_k=k, augment=augment,
         )
-        state = init_fn(0, selector)
+        state = init_fn(0, sel)
+        per_step = per_step_launches(stu.config, tch, pts, k, augment)
+        weights_shape = (len(pts), teacher_layers(tch))
         step_ms = []
         torch.cuda.synchronize()
         kernels.reset_launches()
         for i in range(steps):
+            before = dict(kernels.LAUNCHES)
             t0 = time.perf_counter()
-            state, met = step_fn(state, images, labels)
+            state, met = step_fn(state, ims, lbs)
             loss = float(met["loss"])
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             w = met["mixing_weights"]
             ranks = met["mp_ranks"]
             if not np.isfinite(loss):
-                raise AssertionError(f"step {i}: loss {loss}")
-            if w.shape != (len(points), 12) or \
+                raise AssertionError(f"{label} step {i}: loss {loss}")
+            if tuple(w.shape) != weights_shape or \
                     (w.sum(-1) - 1).abs().max().item() > 1e-5:
-                raise AssertionError(f"step {i}: mixing weights {w}")
-            if ranks.min().item() < 1 or ranks.max().item() > k_cal:
-                raise AssertionError(f"step {i}: mp_ranks {ranks.tolist()}")
-            print(f"step {i} (augment={augment}): loss {loss:.6f} ce "
+                raise AssertionError(f"{label} step {i}: mixing weights {w}")
+            if ranks.min().item() < 1 or ranks.max().item() > k:
+                raise AssertionError(f"{label} step {i}: mp_ranks {ranks.tolist()}")
+            counts = {n: kernels.LAUNCHES[n] - before[n] for n in per_step}
+            if counts != per_step:
+                raise AssertionError(f"{label} step {i} (augment={augment}): launches "
+                                     f"{counts}, expected {per_step}")
+            print(f"{label} step {i} (augment={augment}): loss {loss:.6f} ce "
                   f"{float(met['ce_loss']):.6f} geo {float(met['geo_loss']):.6f} "
                   f"temps {[round(t, 6) for t in met['temperatures'].tolist()]} "
-                  f"mp_ranks {ranks.tolist()} K {k_cal} ms {step_ms[-1]:.2f}")
+                  f"mp_ranks {ranks.tolist()} K {k} ms {step_ms[-1]:.2f}")
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        per_step = {"attention_fwd": 24, "attention_bwd": 12,
-                    "jacobi_eigh": 3 if k3_on_path else 0,
-                    "warp": 1 if augment else 0,
-                    "jacobi_eigvals": 0, "attn_probe": 0}
         for name, want in per_step.items():
             if launches[name] != want * steps:
                 raise AssertionError(
-                    f"{name}: {launches[name]} launches in {steps} steps "
+                    f"{label} {name}: {launches[name]} launches in {steps} steps "
                     f"(augment={augment}), expected {want} per step")
-        print(f"main path (augment={augment}): launches {launches} over {steps} "
-              f"steps; step ms {step_ms} (median after the first "
-              f"{np.median(step_ms[1:]):.2f}); peak memory "
+        print(f"{label} (augment={augment}): launches {launches} over {steps} "
+              f"steps, per step {per_step}; step ms {step_ms} (median after the "
+              f"first {np.median(step_ms[1:]):.2f}); peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return step_fn, state, launches, step_ms
 
+    # Table-3's launches per step, as every earlier run counted them
+    table3 = {"attention_fwd": 24, "attention_bwd": 12,
+              "jacobi_eigh": 3 if k3_on_path else 0, "warp": 1,
+              "jacobi_eigvals": 0, "attn_probe": 0}
+    if per_step_launches(cfg, teacher, points, k_cal, True) != table3:
+        raise AssertionError(f"Table-3 launches per step "
+                             f"{per_step_launches(cfg, teacher, points, k_cal, True)}")
     if not k3_on_path:
         print(f"finding: calibrated K={k_cal} is outside the Jacobi gate, "
               "the eigh kernel is off the main path")
     # the deterministic path first: phase 7 profiles the augmented state
-    _, _, _, det_step_ms = main_path(False, DETERMINISTIC_STEPS)
-    step_fn, state, launches, step_ms = main_path(True, MAIN_STEPS)
+    main_args = (student, teacher, selector, points, k_cal, img, raw, images, labels,
+                 num_classes)
+    _, _, _, det_step_ms = run_steps("main path", *main_args, False, DETERMINISTIC_STEPS)
+    step_fn, state, launches, step_ms = run_steps("main path", *main_args, True,
+                                                  MAIN_STEPS)
 
     # ---- 5b. the tool paths at full size, each through its kernels ----
     def tool_path(name, run, needs):
@@ -979,6 +1045,102 @@ def main() -> int:
             ms=ms, k1_ms=probe["attention_fwd"])
     report["attention_fwd"][t1_case]["ms"] = probe["attention_fwd"]
 
+    # ---- 5c. the 224 px steps: Table-1 and Table-2 at full width ----
+    # bench.py's `--imagenet --teacher dinov2_vitl14` and `--cross-arch`
+    # arms, staged as it stages them: bf16 models from seeds, batch 256 of
+    # 256 px uint8 images from default_rng(0) (crop ratio 224/256), 1000
+    # classes, drop_path 0.05, no remat, K calibrated on the eval view; 1 + 2
+    # augmented steps, the first carrying the one-off set-up. Staging time
+    # is printed: the weights are drawn on a CPU generator (about 304 M
+    # values for ViT-L) and copied to the card.
+    def stage_224(label, teacher_name, student_name):
+        size, bsz, ncls, spatch = 224, 256, 1000, 16
+        raw_size = size + 2 * spatch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tch = load_teacher(teacher_name, img_size=size, dtype=bf16, device=dev)
+        t_teacher = time.perf_counter() - t0
+        pts = extraction_points(12, 4)
+        t0 = time.perf_counter()
+        stu, scfg = create_student(
+            student_name, num_classes=ncls, drop_path_rate=0.05, img_size=size,
+            capture_layers=pts, dtype=bf16, remat=False, device=dev)
+        t_student = time.perf_counter() - t0
+        sel = init_selector(1, len(pts), scfg.embed_dim, tch.spec.embed_dim, device=dev)
+        r = np.random.default_rng(0)
+        ims = torch.from_numpy(
+            (r.random((bsz, raw_size, raw_size, 3)) * 255).astype(np.uint8)).to(dev)
+        lbs = torch.from_numpy(r.integers(0, ncls, bsz, dtype=np.int64)).to(dev)
+        t0 = time.perf_counter()
+        cal = eval_view(ims, size, size / raw_size, *TEACHER_STATS)
+        k = calibrate_subspace_k(tch, scfg.embed_dim, cal, seed=0,
+                                 num_extraction_points=len(pts))
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        del cal
+        per_step = per_step_launches(scfg, tch, pts, k, True)
+        print(f"staging {label}: teacher {teacher_name} D={tch.spec.embed_dim} "
+              f"layers={teacher_layers(tch)} tokens={tch.num_tokens}; student "
+              f"{student_name} D={scfg.embed_dim} heads={scfg.num_heads} "
+              f"tokens={scfg.num_patches + 1}; batch {bsz} at {size} px; K={k} "
+              f"(Jacobi kernel gate 16 <= K <= 96: {use_jacobi((len(pts), k, k))}; K3 "
+              f"{'on' if per_step['jacobi_eigh'] else 'off'} the path, "
+              f"{per_step['jacobi_eigh']} launches per step); staging s: teacher "
+              f"{t_teacher:.2f} student {t_student:.2f} calibration {t_k:.2f}")
+        fn, st, counts, ms = run_steps(label, stu, tch, sel, pts, k, size, raw_size,
+                                       ims, lbs, ncls, True, 1 + STEPS_224)
+        if per_step["jacobi_eigh"]:
+            # K3 at this step's (P, K, K) shape (the student Rayleigh-Ritz and
+            # the principal angles: P = 4, one teacher layer) on a random PSD
+            # Gram, timed beside the plain version and torch.linalg.eigh; the
+            # ping-pong route's bit-for-bit check at every even n covers it
+            x = torch.randn((len(pts), k, k), device=dev, generator=gen)
+            a = x @ x.transpose(-1, -2) / k
+            w, _ = kernel_jacobi_eigh(a, sweeps=6)
+            wp, _ = jacobi.jacobi_eigh(a, sweeps=6)
+            torch.cuda.synchronize()
+            row = dict(max_abs_err=(w - wp).abs().max().item(),
+                       rel_err=((w - wp).abs().amax(-1) / wp.abs().amax(-1)).max().item(),
+                       route=eigh_route(k), **jacobi_timing(a))
+            if not row["rel_err"] <= 1e-4:
+                raise AssertionError(f"jacobi_eigh {label} (4, {k}, {k}): {row}")
+            report["jacobi_eigh"][f"{label} ({len(pts)}, {k}, {k})"] = row
+            print(f"kernel jacobi_eigh {label} ({len(pts)}, {k}, {k}) (route "
+                  f"{row['route']}): vs plain {row['rel_err']:.3g} (tol 1e-4); ms "
+                  f"{row['ms']:.4f} (device {row['device_ms']:.4f}, "
+                  f"{row['us_per_step']:.3f} us per step) plain {row['plain_ms']:.4f} "
+                  f"linalg.eigh {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
+                  f"({row['bound_by']})")
+        return dict(teacher=tch, images=ims, labels=lbs, step_fn=fn, state=st,
+                    launches=counts, step_ms=ms, k=k, per_step=per_step,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    staging_s=dict(teacher=t_teacher, student=t_student,
+                                   calibration=t_k),
+                    size=size, raw=raw_size, patch=spatch)
+
+    table1 = stage_224("Table-1", "dinov2_vitl14", "vit_small_patch16")
+    # the ViT-L teacher's intrinsic dimension on ceil(10 D / 196) eval-view
+    # images, as the JAX trainer sizes its calibration set, and the student
+    # it would derive (no arch_overrides)
+    tch = table1["teacher"]
+    n_cal = -(-10 * tch.spec.embed_dim // (table1["size"] // table1["patch"]) ** 2)
+    t0 = time.perf_counter()
+    idim = estimate_intrinsic_dim(tch, eval_view(
+        table1["images"][:n_cal], table1["size"], table1["size"] / table1["raw"],
+        tch.mean, tch.std))
+    t_idim = time.perf_counter() - t0
+    arch = derive_student_arch(tch.spec, idim)
+    if not 1 <= idim <= tch.spec.embed_dim:
+        raise AssertionError(f"Table-1 intrinsic dimension {idim}")
+    print(f"Table-1 intrinsic dimension {idim} on {n_cal} eval-view images "
+          f"({t_idim:.2f} s); derive_student_arch {arch}")
+    table2 = stage_224("Table-2", "convnextv2_tiny", "vit_tiny_patch16")
+    del table2["state"], table2["step_fn"], table2["teacher"]
+    torch.cuda.empty_cache()
+    path_launches["table1_step"] = table1["launches"]
+    path_launches["table2_step"] = table2["launches"]
+
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both
     # sides take one set of augmentation draws, sampled once on the CPU.
@@ -989,15 +1151,24 @@ def main() -> int:
 
     small_gen = torch.Generator().manual_seed(7)
     small_draws = [train_step.sample_step_draws(small_gen, 8) for _ in range(2)]
-    view_kw = dict(img_size=16, crop_ratio=16 / 20, teacher_stats=TEACHER_STATS,
-                   dataset_stats=DATASET_STATS)
 
-    def small_run(device):
-        t = load_teacher("vit_mini_patch4", img_size=16, dtype=f32, device=device)
+    def small_run(device, teacher_name="vit_mini_patch4", size=16, remat=False,
+                  drop_path=0.0):
+        """Two augment=True steps of a micro student (vit_micro_patch4 at
+        `size` px, batch 8, fp32) under `teacher_name`, the draws replayed
+        from `small_draws`; (loss, MP ranks) per step, the augmented views
+        before and after MixUp/CutMix with the soft targets, and the
+        kernels' launches."""
+        kernels.reset_launches()
+        raw_size = size * 5 // 4
+        view_kw = dict(img_size=size, crop_ratio=size / raw_size,
+                       teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS)
+        t = load_teacher(teacher_name, img_size=size, dtype=f32, device=device)
         pts = extraction_points(4, 2)
         s, c = create_student("vit_micro_patch4", num_classes=10,
-                              drop_path_rate=0.0, img_size=16,
-                              capture_layers=pts, dtype=f32, device=device)
+                              drop_path_rate=drop_path, img_size=size,
+                              capture_layers=pts, dtype=f32, remat=remat,
+                              device=device)
         sel = init_selector(1, len(pts), c.embed_dim, t.spec.embed_dim,
                             device=device)
         ini, stp = make_train_step(
@@ -1006,14 +1177,15 @@ def main() -> int:
         )
         st = ini(0, sel)
         r = np.random.default_rng(42)
-        im = torch.from_numpy((r.random((8, 20, 20, 3)) * 255).astype(np.uint8))
+        im = torch.from_numpy((r.random((8, raw_size, raw_size, 3)) * 255).astype(np.uint8))
         lb = torch.from_numpy(r.integers(0, 10, 8, dtype=np.int64))
         im, lb = im.to(device), lb.to(device)
         draws = [to_device(d, device) for d in small_draws]
         views = []
         for d in draws:
             _, aug = dual_view(im, d.view, **view_kw)
-            views.append([v.cpu() for v in mixup_cutmix(aug, lb, d.mix, num_classes=10)])
+            views.append([aug.cpu(), *(v.cpu() for v in mixup_cutmix(
+                aug, lb, d.mix, num_classes=10))])
         replay = iter(draws)
         sampler = train_step.sample_step_draws
         train_step.sample_step_draws = lambda generator, batch: next(replay)
@@ -1024,65 +1196,177 @@ def main() -> int:
                 out.append((float(mt["loss"]), mt["mp_ranks"].tolist()))
         finally:
             train_step.sample_step_draws = sampler
-        return out, views
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return out, views, dict(kernels.LAUNCHES)
 
-    kernels.reset_launches()
-    on_card, card_views = small_run(dev)
-    torch.cuda.synchronize()
-    small_launches = dict(kernels.LAUNCHES)
-    on_cpu, cpu_views = small_run(torch.device("cpu"))
-    view_err = max((a - b).abs().max().item()
-                   for va, vb in zip(card_views, cpu_views) for a, b in zip(va, vb))
-    if not view_err <= 1e-5:
-        raise AssertionError(f"reference: student view / targets card vs cpu {view_err}")
-    for (lc, rc), (lp, rp) in zip(on_card, on_cpu):
-        if rc != rp or not abs(lc - lp) <= 1e-3 * abs(lp):
-            raise AssertionError(f"reference: card {on_card} vs cpu {on_cpu}")
-    # one warp per dual_view: the views compared above, then the steps
-    if small_launches["warp"] != 2 * len(small_draws):
-        raise AssertionError(f"reference: warp launches {small_launches}")
-    ops = sorted(set(torch.cat([d.view.augment.op for d in small_draws]).tolist()))
-    print(f"reference (augment=True, ops {ops}): student views and targets card "
-          f"vs cpu max err {view_err:.3g} (tol 1e-5); loss card {on_card} vs cpu "
-          f"{on_cpu} (loss rtol 1e-3, ranks equal); card launches {small_launches}")
+    quantizing = (augment_ops.OP_POSTERIZE, augment_ops.OP_SOLARIZE,
+                  augment_ops.OP_AUTOCONTRAST, augment_ops.OP_EQUALIZE)
 
-    # ---- 7. one profiled main-path step ----
+    def card_vs_cpu(what, tol=1e-5, ties=False, **kw):
+        """The small run on the card and on the CPU: views and soft targets
+        within `tol`, losses within rtol 1e-3, MP ranks equal. With `ties`,
+        an image whose op quantizes (posterize, solarize, autocontrast,
+        equalize: a floor or a threshold of a value that the card and the
+        CPU round apart by an ulp) may differ by whole levels; so may a
+        mixed image that holds its pixels (CutMix pastes sample i - 1 into
+        sample i); the rest, and the targets, within `tol`."""
+        on_card, card_views, card_launches = small_run(dev, **kw)
+        on_cpu, cpu_views, _ = small_run(torch.device("cpu"), **kw)
+        view_err, tie_elems, tie_err = 0.0, 0, 0.0
+        for d, (aug_c, mix_c, tgt_c), (aug_p, mix_p, tgt_p) in zip(
+                small_draws, card_views, cpu_views):
+            q = torch.isin(d.view.augment.op, torch.tensor(quantizing))
+            q_mix = q | torch.roll(q, 1) if ties else torch.zeros_like(q)
+            q_aug = q if ties else torch.zeros_like(q)
+            view_err = max(view_err, (tgt_c - tgt_p).abs().max().item())
+            for got, want, tie in ((aug_c, aug_p, q_aug), (mix_c, mix_p, q_mix)):
+                diff = (got - want).abs()
+                view_err = max(view_err, diff[~tie].max().item() if (~tie).any() else 0.0)
+                tie_elems += int((diff[tie] > tol).sum())
+                tie_err = max(tie_err, diff[tie].max().item() if tie.any() else 0.0)
+        if not view_err <= tol:
+            raise AssertionError(f"reference {what}: student view / targets card vs "
+                                 f"cpu {view_err} (tol {tol})")
+        if ties:
+            print(f"reference {what}: images whose op quantizes differ card vs cpu in "
+                  f"{tie_elems} elements (max {tie_err:.3g}, normalized)")
+        for (lc, rc), (lp, rp) in zip(on_card, on_cpu):
+            if rc != rp or not abs(lc - lp) <= 1e-3 * abs(lp):
+                raise AssertionError(f"reference {what}: card {on_card} vs cpu {on_cpu}")
+        # one warp per dual_view: the views compared above, then the steps
+        if card_launches["warp"] != 2 * len(small_draws):
+            raise AssertionError(f"reference {what}: warp launches {card_launches}")
+        ops = sorted(set(torch.cat([d.view.augment.op for d in small_draws]).tolist()))
+        print(f"reference {what} (augment=True, ops {ops}): student views and targets "
+              f"card vs cpu max err {view_err:.3g} (tol {tol}); loss card {on_card} vs "
+              f"cpu {on_cpu} (loss rtol 1e-3, ranks equal); card launches "
+              f"{card_launches}")
+        return card_launches
+
+    card_vs_cpu("vit_mini_patch4 teacher, 16 px")
+    # L = 1: a micro ConvNeXt-V2 teacher's 2 x 2 tokens against 256 student
+    # tokens; K1/K2 in the student only. At 64 px the views' fp32 sums run
+    # over 80-tap crop resampling and 4,096-pixel contrast means, summed in
+    # other orders on the card (2.4e-5 seen, normalized): 1e-4 here
+    cnn_launches = card_vs_cpu("convnextv2_micro teacher, 64 px", tol=1e-4, ties=True,
+                               teacher_name="convnextv2_micro", size=64)
+    if cnn_launches["attention_fwd"] != 4 * len(small_draws):
+        raise AssertionError(f"reference convnextv2_micro: {cnn_launches}")
+
+    def rel(got, want) -> float:
+        return ((got.detach().float().cpu() - want.detach().float().cpu()).abs().max()
+                / want.detach().float().abs().max().clamp(min=1e-30)).item()
+
+    # A ResNet teacher's forward (BasicBlocks, BatchNorm, asymmetric SAME
+    # pads at 64 px) on the card and the CPU from the same weights: tokens
+    # and pooled features within 1e-4 of scale (fp32 cuDNN convolutions,
+    # TF32 off, summed in other orders)
+    xr = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 64, 64, 3)).astype(np.float32))
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        t = load_teacher("resnet_micro", img_size=64, dtype=f32, device=device)
+        with torch.no_grad():
+            outs.append(t.module(xr.to(device)))
+    err = max(rel(outs[0].tokens, outs[1].tokens), rel(outs[0].logits, outs[1].logits))
+    if not (err <= 1e-4 and torch.equal(outs[0].importance.cpu(), outs[1].importance)):
+        raise AssertionError(f"reference resnet_micro forward: card vs cpu {err}")
+    print(f"reference resnet_micro forward (4, 64, 64, 3): tokens "
+          f"{tuple(outs[0].tokens.shape)} and pooled features card vs cpu {err:.3g} "
+          "(tol 1e-4 of scale); uniform importance equal")
+
+    # A ViT without a CLS token, forward and backward: its attention takes
+    # the einsum chain (the importance needs the normalized attention), so
+    # K1 never runs; outputs, the input gradient and every parameter
+    # gradient within 1e-4 of scale
+    ncfg = ViTConfig(img_size=16, patch_size=4, embed_dim=64, depth=2, num_heads=2,
+                     num_classes=10, has_cls_token=False, dtype=f32)
+    xn = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 16, 16, 3)).astype(np.float32))
+    sides = []
+    for device in (dev, torch.device("cpu")):
+        m = VisionTransformer(ncfg, capture_layers=(0, 1))
+        m.init_weights(3)
+        m.to(device)
+        xg = xn.to(device).requires_grad_(True)
+        kernels.reset_launches()
+        o = m(xg, train=True)
+        sum((a * (i + 1)).sin().sum() for i, a in enumerate(o)).backward()
+        sides.append((o, xg.grad, {n: p.grad for n, p in m.named_parameters()},
+                      dict(kernels.LAUNCHES)))
+    (oc, gc, pc, lc), (op, gp, pp, _) = sides
+    err = max([rel(a, b) for a, b in zip(oc, op)] + [rel(gc, gp)]
+              + [rel(pc[n], pp[n]) for n in pp])
+    if not (err <= 1e-4 and lc["attention_fwd"] == 0 and lc["attention_bwd"] == 0):
+        raise AssertionError(f"reference no-CLS ViT: card vs cpu {err}, launches {lc}")
+    print(f"reference no-CLS ViT forward and backward (4, 16, 16, 3): outputs, input "
+          f"and parameter gradients card vs cpu {err:.3g} (tol 1e-4 of scale); card "
+          f"launches {lc}")
+
+    # remat on the card: the same two steps (drop_path 0.1, draws replayed)
+    # with and without it give the same losses and ranks; K1 runs once more
+    # per student block and step (its forward again in the backward)
+    plain_run, _, plain_launches = small_run(dev, drop_path=0.1)
+    remat_run, _, remat_launches = small_run(dev, drop_path=0.1, remat=True)
+    same = plain_run == remat_run
+    extra = remat_launches["attention_fwd"] - plain_launches["attention_fwd"]
+    if not (all(abs(a[0] - b[0]) <= 1e-6 * abs(a[0]) and a[1] == b[1]
+                for a, b in zip(plain_run, remat_run)) and extra == 4 * len(small_draws)
+            and remat_launches["attention_bwd"] == plain_launches["attention_bwd"]):
+        raise AssertionError(f"reference remat: {remat_run} ({remat_launches}) vs "
+                             f"{plain_run} ({plain_launches})")
+    print(f"reference remat=True vs remat=False on the card (drop_path 0.1): losses "
+          f"and ranks {remat_run} vs {plain_run} (rtol 1e-6; bit for bit: {same}); "
+          f"K1 launches {remat_launches['attention_fwd']} vs "
+          f"{plain_launches['attention_fwd']} (+1 per student block and step)")
+
+    # ---- 7. one profiled step each: Table-3 (the main path) and Table-1 ----
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, met = step_fn(state, images, labels)
-        float(met["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = device_events(prof)
-    busy_ms = sum(device_us(e) for e in dev_events) / 1e3
-    print(f"profile: step {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev_events)} "
-          "device kernels")
-    for e in prof.key_averages():
-        if e.key.startswith("basd:") and \
-                e.device_type == torch.autograd.DeviceType.CPU:
-            print(f"  stage {e.key[5:]:<16s} host {e.cpu_time_total / 1e3:9.3f} ms")
-    for e in sorted(dev_events, key=device_us, reverse=True)[:12]:
-        print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     # the port's own kernels (csrc/*.cu); PyTorch's softmax and arange
     # kernels also sit in anonymous namespaces
     own_kernel = re.compile(
         r"void \(anonymous namespace\)::(attn_\w+|jacobi_\w*kernel|warp_\w*kernel)[<(]")
-    own = [e for e in dev_events if own_kernel.match(e.key)]
-    print(f"profile: the port's kernels {sum(device_us(e) for e in own) / 1e3:.3f} "
-          f"ms of device time in the step")
-    for e in sorted(own, key=device_us, reverse=True):
-        print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    # torch.profiler has dropped K4's one launch in every profile so far;
-    # its device time per launch is phase 4's `kernel_ms` reading
-    warp_row = report["warp"][f"main path {(batch, img, img, 3)}"]
-    in_profile = any("warp_" in e.key for e in own)
-    print(f"profile: K4 (warp, route {warp_row['route']}) device "
-          f"{warp_row['device_ms']:.5f} ms per launch by kernel_ms (phase 4); "
-          f"{'recorded' if in_profile else 'no record'} in this profile")
+
+    def profile_step(label, fn, st, ims, lbs, warp_row):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st, met = fn(st, ims, lbs)
+            float(met["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_events = device_events(prof)
+        busy_ms = sum(device_us(e) for e in dev_events) / 1e3
+        print(f"profile {label}: step {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} "
+              f"ms ({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in dev_events)} "
+              "device kernels")
+        for e in prof.key_averages():
+            if e.key.startswith("basd:") and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
+                print(f"  stage {e.key[5:]:<16s} host {e.cpu_time_total / 1e3:9.3f} ms")
+        for e in sorted(dev_events, key=device_us, reverse=True)[:12]:
+            print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        own = [e for e in dev_events if own_kernel.match(e.key)]
+        print(f"profile {label}: the port's kernels "
+              f"{sum(device_us(e) for e in own) / 1e3:.3f} ms of device time in the step")
+        for e in sorted(own, key=device_us, reverse=True):
+            print(f"  {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        # torch.profiler has dropped K4's one launch in profiles before; its
+        # device time per launch is phase 4's `kernel_ms` reading
+        in_profile = any("warp_" in e.key for e in own)
+        print(f"profile {label}: K4 (warp, route {warp_row['route']}) device "
+              f"{warp_row['device_ms']:.5f} ms per launch by kernel_ms (phase 4); "
+              f"{'recorded' if in_profile else 'no record'} in this profile")
+
+    profile_step("Table-3", step_fn, state, images, labels,
+                 report["warp"][f"main path {(batch, img, img, 3)}"])
+    torch.cuda.reset_peak_memory_stats()
+    profile_step("Table-1", table1["step_fn"], table1["state"], table1["images"],
+                 table1["labels"], report["warp"]["reference default (256, 224, 224, 3)"])
+    print(f"profile Table-1: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
 
     # ---- result lines ----
     meta = {
@@ -1135,6 +1419,10 @@ def main() -> int:
         })
     print(json.dumps({"kernels": entries, "step_ms": step_ms,
                       "deterministic_step_ms": det_step_ms,
+                      **{f"{name}_{key}": t[key] for name, t in
+                         (("table1", table1), ("table2", table2))
+                         for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
+                      "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "jacobi_eigh_us_per_step_by_n": us_by_n}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
