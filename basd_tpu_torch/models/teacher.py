@@ -1,7 +1,7 @@
 """Frozen teacher construction, intermediate extraction and intrinsic-dim
 calibration (`basd_tpu/models/teacher.py`): ViT teachers and the CNN
 teachers (ResNet, ConvNeXt V1/V2) of `models.cnn`. Weights are random,
-drawn from a seed; converted checkpoints load through `models.convert`."""
+drawn from a seed, or loaded from a weight file through `models.convert`."""
 
 from __future__ import annotations
 
@@ -63,19 +63,34 @@ def load_teacher(
     img_size: int,
     *,
     seed: int = 0,
+    weights_path: str | None = None,
     dtype=torch.bfloat16,
     device=None,
     mean: tuple[float, float, float] | None = None,
     std: tuple[float, float, float] | None = None,
 ) -> Teacher:
-    """Build a frozen, randomly initialized teacher on `device` (the CUDA
-    card by default). Normalization stats default to the preset's. A CNN's
-    token count is read from one forward of a zero image, as the JAX
-    package does."""
+    """Build a frozen teacher on `device` (the CUDA card by default): random
+    weights from `seed`, or the weight file `weights_path` loaded strictly
+    (`models.convert.load_converted_weights`). Normalization stats: the
+    explicit `mean`/`std`, else those recorded with the weight file, else
+    the preset's. A CNN's token count is read from one forward of a zero
+    image, as the JAX package does."""
     dev = resolve_device(device)
     spec = resolve_preset(model_name)
     module = build_teacher_module(spec, img_size, dtype=dtype)
     module.init_weights(seed)
+    if weights_path is not None:
+        # imported here: convert imports the selector, which imports this
+        from basd_tpu_torch.models.convert import (
+            load_checkpoint_stats,
+            load_converted_weights,
+        )
+
+        load_converted_weights(weights_path, module)
+        ckpt_stats = load_checkpoint_stats(weights_path)
+        if ckpt_stats is not None:
+            mean = ckpt_stats[0] if mean is None else mean
+            std = ckpt_stats[1] if std is None else std
     module = module.to(dev).eval().requires_grad_(False)
     if spec.family == "vit":
         num_tokens = spec.num_tokens(img_size)

@@ -65,6 +65,13 @@ Phases, in order; any failure raises and the exit code is not 0:
   7. profile: one main-path step and one Table-1 step under
      torch.profiler, device time by kernel and host time by stage, and K4's
      device time from phase 4 (profiles have dropped its one launch);
+  8. entry points: `basd_tpu_torch.train.main` at Table-3 width (the
+     basd_cifar100 experiment on 1,024 synthetic images, one epoch of 8
+     steps, bf16, remat, K auto, `latest` every 4 steps) with its exact
+     launches, the restored `latest` against the live state bit for bit,
+     and `python -m basd_tpu_torch.evaluate` from the run's snapshot
+     reproducing its final eval; the trainer's step times beside the bare
+     step's, the eval throughput, each save's blocking time, peak memory;
 then a JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}} last.
 """
@@ -72,7 +79,9 @@ result line {"ok": true, "device": {...}} last.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -148,8 +157,11 @@ def main() -> int:
         kernel_ms,
     )
     from basd_tpu_torch.spectral.ops import use_jacobi
+    from basd_tpu_torch import evaluate as evaluate_entry
+    from basd_tpu_torch import train as train_entry
     from basd_tpu_torch.training import train_step
     from basd_tpu_torch.training.train_step import make_train_step
+    from basd_tpu_torch.training.trainer import Trainer
 
     # fp32 means fp32 here: no TF32 in matmuls or in cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1368,6 +1380,168 @@ def main() -> int:
     print(f"profile Table-1: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
 
+    # ---- 8. the trainer and evaluation entry points at Table-3 width ----
+    # `python -m basd_tpu_torch.train` as a user runs it (through `main`):
+    # the paper's Table-3 run at full width (DeiT-Tiny/4 at 32 px with the
+    # DINOv2 ViT-B/14 teacher, random weights from the seed, batch 128, 100
+    # classes, bf16, remat, K auto) on 1,024 synthetic images, one epoch of
+    # 8 steps, `latest` saved every 4; then `python -m basd_tpu_torch.evaluate`
+    # from the run's snapshot in a subprocess, and once more in this process
+    # for its launch counts. The arch_overrides keep the student at DeiT-Tiny
+    # width (a random teacher's intrinsic dimension would shrink it).
+    del table1["state"], table1["step_fn"], table1["teacher"], table1["images"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    out_root = "chiprun_out/m7"
+    shutil.rmtree(out_root, ignore_errors=True)
+    m7_argv = [
+        "experiment=basd_cifar100", "data.dataset=synthetic/cifar100-like-1024n",
+        "training.num_epochs=1",
+        "model.arch_overrides={embed_dim: 192, depth: 12, num_heads: 3, mlp_ratio: 4.0}",
+        "checkpoint.save_every_steps=4", "evaluation.efficiency_warmup=5",
+        "evaluation.efficiency_batches=20", f"run.output_dir={out_root}",
+    ]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m7_results, trainer = train_entry.main(m7_argv, device=dev)
+    torch.cuda.synchronize()
+    m7_wall_s = time.perf_counter() - t0
+    m7_launches = dict(kernels.LAUNCHES)
+    m7_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    m7_cfg = trainer.config
+    m7_k = m7_cfg.basd.subspace_k
+    m7_student = trainer.state.student.config
+    m7_steps = trainer.state.step
+    eval_cfg = m7_cfg.evaluation
+    eval_batches = -(-128 // m7_cfg.data.batch_size)  # the 128-image test split
+    # K1 in every student block of each forward outside the train steps: the
+    # per-epoch and the final evaluation, the efficiency loop; 12 in the
+    # teacher's forward of the K calibration; none for the FLOP count (a CPU
+    # copy of the model)
+    eval_forwards = 2 * eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches
+    per_step = per_step_launches(m7_student, trainer.teacher, trainer.extraction_points,
+                                 m7_k, True)
+    want = {name: per_step[name] * m7_steps for name in per_step}
+    want["attention_fwd"] += m7_student.depth * eval_forwards + teacher_layers(trainer.teacher)
+    if (m7_steps != 8 or not m7_student.remat or m7_student.embed_dim != 192
+            or per_step["attention_fwd"] != 36 or m7_launches != want):
+        raise AssertionError(f"train entry: {m7_steps} steps, remat {m7_student.remat}, "
+                             f"launches {m7_launches}, expected {want} (per step "
+                             f"{per_step}, K={m7_k})")
+    primary = m7_results["primary"]
+    if not all(np.isfinite(primary[key]) for key in ("val_acc", "val_acc_top5", "loss")):
+        raise AssertionError(f"train entry: primary {primary}")
+    print(f"train entry: K={m7_k} (Jacobi kernel gate 16 <= K <= 96: "
+          f"{use_jacobi((len(trainer.extraction_points), m7_k, m7_k))}); {m7_steps} steps "
+          f"of batch {m7_cfg.data.batch_size}, remat {m7_student.remat}; launches "
+          f"{m7_launches} (per step {per_step}, plus K1 x {m7_student.depth} in "
+          f"{eval_forwards} eval and efficiency forwards and the calibration's 12); "
+          f"{m7_wall_s:.1f} s")
+    trainer_ms = trainer.step_ms
+    print(f"train entry: trainer step ms {[round(t, 2) for t in trainer_ms]} (CUDA events "
+          f"between step ends): first {trainer_ms[0]:.2f}, median after the first "
+          f"{np.median(trainer_ms[1:]):.2f}; the bare augmented step (phase 5, remat off) "
+          f"median {np.median(step_ms[1:]):.2f}; the epoch loop blocked on each save "
+          f"{[round(t, 2) for t in trainer.checkpoints.blocked_ms]} ms; eval throughput "
+          f"{m7_results['efficiency']['throughput_img_per_sec']:.1f} img/s at batch "
+          f"{eval_cfg.get('efficiency_batch_size', 64)}, gflops {m7_results['efficiency']['gflops']:.4f}; peak memory "
+          f"{m7_peak_gib:.2f} GiB ({held_gib:.2f} held by earlier phases)")
+
+    # the restored `latest` equals the live state bit for bit: every
+    # parameter, z, v, the CUDA generator's state and the step; the fresh
+    # trainer's student is drawn from another seed, so the restore must
+    # overwrite it
+    fresh_student, fresh_cfg = create_student(
+        m7_cfg.model.student_preset, num_classes=m7_cfg.model.num_classes,
+        drop_path_rate=m7_cfg.model.drop_path_rate, img_size=img,
+        arch_overrides={**m7_cfg.model.arch_overrides, "patch_size": patch},
+        capture_layers=trainer.extraction_points, dtype=bf16, remat=True, device=dev,
+        seed=m7_cfg.run.seed + 7)
+    fresh = Trainer(m7_cfg, student=fresh_student, student_cfg=fresh_cfg,
+                    teacher=trainer.teacher,
+                    teacher_stats=(trainer.teacher.mean, trainer.teacher.std),
+                    dataset_stats=trainer._eval_stats)
+
+    def state_tensors(tr):
+        st = tr.state
+        out = {f"param {k}": v for k, v in st.student.state_dict().items()}
+        for i, p in enumerate(st.optimizer.param_groups[0]["params"]):
+            out[f"z {i}"] = st.optimizer.state[p]["z"]
+            out[f"v {i}"] = st.optimizer.state[p]["exp_avg_sq"]
+        out["log_temperatures"] = st.selector.log_temperatures
+        out["generator"] = st.generator.get_state()
+        return out
+
+    live_tensors = state_tensors(trainer)
+    differs_before = sum(not torch.equal(v, state_tensors(fresh)[k])
+                         for k, v in live_tensors.items())
+    fresh.load_checkpoint("latest")
+    restored = state_tensors(fresh)
+    unequal = [k for k, v in live_tensors.items() if not torch.equal(v, restored[k])]
+    if unequal or fresh.state.step != trainer.state.step or not differs_before:
+        raise AssertionError(f"restore latest: {len(unequal)} tensors differ "
+                             f"{unequal[:5]}, step {fresh.state.step} vs "
+                             f"{trainer.state.step}")
+    print(f"train entry: restore_state('latest') into a fresh Trainer equals the live "
+          f"state bit for bit ({len(live_tensors)} tensors: parameters, z, v, "
+          f"log-temperatures, the CUDA generator's state; {differs_before} differed "
+          f"before), step {fresh.state.step}")
+    del fresh, fresh_student
+
+    snapshot = f"{out_root}/{m7_cfg.run.name}/config.yaml"
+    final_npz = f"{out_root}/{m7_cfg.run.name}/checkpoints/final_model.npz"
+    eval_argv = [f"config={snapshot}", f"checkpoint.path={final_npz}"]
+    t0 = time.perf_counter()
+    # the package is found from this script's directory, whatever the cwd
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH"))
+        if p)
+    proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.evaluate", *eval_argv],
+                          capture_output=True, text=True, timeout=600, env=env)
+    eval_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"evaluate exited {proc.returncode}:\n{proc.stdout}"
+                             f"\n{proc.stderr[-4000:]}")
+    with open(f"{out_root}/{m7_cfg.run.name}/metrics.json") as f:
+        sub_primary = json.load(f)["primary"]
+
+    def same_primary(got):
+        return (got["val_acc"] == primary["val_acc"]
+                and got["val_acc_top5"] == primary["val_acc_top5"]
+                and abs(got["loss"] - primary["loss"]) <= 1e-6 * abs(primary["loss"]))
+
+    kernels.reset_launches()
+    in_process = evaluate_entry.main(eval_argv, device=dev)
+    torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)
+    want_eval = {name: 0 for name in eval_launches}
+    want_eval["attention_fwd"] = m7_student.depth * (
+        eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
+    if not (same_primary(sub_primary) and same_primary(in_process["primary"])
+            and eval_launches == want_eval):
+        raise AssertionError(f"evaluate: {sub_primary} (subprocess), "
+                             f"{in_process['primary']} (in process) vs the train run's "
+                             f"{primary}; launches {eval_launches}, expected {want_eval}")
+    print(f"evaluate: `python -m basd_tpu_torch.evaluate` from the snapshot reproduces "
+          f"the train run's final eval (top1 {primary['val_acc']:.4f}, top5 "
+          f"{primary['val_acc_top5']:.4f}: equal; loss {sub_primary['loss']:.8f} vs "
+          f"{primary['loss']:.8f}, tol 1e-6 relative) in {eval_s:.1f} s; in process "
+          f"launches {eval_launches}")
+    path_launches["train_entry"] = m7_launches
+    path_launches["evaluate"] = eval_launches
+    # the run's checkpoints (about 180 MB) are not kept: config.yaml and
+    # metrics.json stay in chiprun_out/m7
+    trainer.checkpoints.close()
+    shutil.rmtree(f"{out_root}/{m7_cfg.run.name}/checkpoints")
+    m7 = {"k": m7_k, "trainer_step_ms": trainer_ms, "bare_step_median_ms":
+          float(np.median(step_ms[1:])), "save_blocked_ms": trainer.checkpoints.blocked_ms,
+          "eval_img_per_s": m7_results["efficiency"]["throughput_img_per_sec"],
+          "peak_gib": m7_peak_gib, "held_gib": held_gib, "wall_s": m7_wall_s,
+          "primary": primary}
+
     # ---- result lines ----
     meta = {
         "attention_fwd": ("basd_tpu_torch/csrc/attention.cu",
@@ -1423,6 +1597,7 @@ def main() -> int:
                          (("table1", table1), ("table2", table2))
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
+                      "m7": m7,
                       "jacobi_eigh_us_per_step_by_n": us_by_n}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

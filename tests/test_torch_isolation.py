@@ -46,7 +46,27 @@ def test_importing_every_module_loads_no_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 20  # every module was imported
+    assert int(out.stdout.split()[0]) >= 54  # every module was imported
+
+
+def test_importing_every_module_needs_no_yaml_pil_datasets_orbax_or_flax():
+    """The card machine has none of these: with each blocked, every module
+    of the port still imports (the Hugging Face branch imports `datasets`
+    and `PIL` only when a Hugging Face dataset is loaded)."""
+    blocked = ("yaml", "PIL", "datasets", "orbax", "flax")
+    code = (
+        "import importlib, sys\n"
+        f"for name in {blocked!r}: sys.modules[name] = None\n"
+        f"mods = {_modules()!r}\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.split()[0]) == len(_modules()) >= 54
 
 
 def test_sources_never_name_jax_or_the_jax_package():
@@ -82,6 +102,18 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         load_teacher("vit_micro_patch4", img_size=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_selector(0, 2, 64, 96)
+
+
+def test_train_and_evaluate_default_to_cuda_and_refuse_without_it(tmp_path):
+    from basd_tpu_torch import evaluate, train
+
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    argv = ["experiment=basd_smoke", f"run.output_dir={tmp_path}"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate.main([*argv, f"checkpoint.path={tmp_path / 'w.npz'}"])
 
 
 def _forbid(monkeypatch, module, name):
