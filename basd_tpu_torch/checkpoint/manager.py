@@ -17,7 +17,13 @@
     {step_in_epoch, running metric sums}, so a killed job resumes the same
     epoch and reproduces the uninterrupted run,
   * weights-only `.npz` exports of the student (the port's state-dict
-    keys plus `__epoch__`) for evaluation, loaded strictly.
+    keys plus `__epoch__`) for evaluation, loaded strictly,
+  * over a mesh (`parallel/mesh.py`) every rank takes part in gathering
+    the tensor-parallel shards of the student and of z and v, and rank 0
+    writes the one-process format, so a checkpoint restores into any mesh
+    or into one process; a restore reads the file on every rank and
+    shards it; `wait` ends with a barrier, so a read after it sees the
+    write.
 """
 
 from __future__ import annotations
@@ -32,6 +38,15 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from basd_tpu_torch.parallel.mesh import barrier
+from basd_tpu_torch.parallel.sharding_rules import (
+    gather_optimizer_state,
+    gather_state_dict,
+    optimizer_names,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 
 _STATE_FILE = "state.pt"
 _CUSTOM_FILE = "custom.json"
@@ -48,11 +63,19 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
-def _state_to_host(state) -> dict[str, Any]:
-    """A `TrainState` as host tensors."""
+def _state_to_host(state, mesh=None) -> dict[str, Any]:
+    """A `TrainState` as host tensors, in the one-process layout (a
+    collective over the model group under tensor parallelism)."""
+    student = state.student.state_dict()
+    optimizer = state.optimizer.state_dict()
+    if mesh is not None and mesh.model > 1:
+        heads = state.student.config.num_heads
+        student = gather_state_dict(dict(student), mesh, heads)
+        optimizer = gather_optimizer_state(
+            optimizer, optimizer_names(state.student), mesh, heads)
     return {
-        "student": _to_host(state.student.state_dict()),
-        "optimizer": _to_host(state.optimizer.state_dict()),
+        "student": _to_host(student),
+        "optimizer": _to_host(optimizer),
         "selector": {
             "log_temperatures": _to_host(state.selector.log_temperatures),
             "proj_s": _to_host(state.selector.proj_s),
@@ -64,7 +87,9 @@ def _state_to_host(state) -> dict[str, Any]:
 
 
 class CheckpointManager:
-    def __init__(self, checkpoint_dir: Path | str):
+    def __init__(self, checkpoint_dir: Path | str, *, mesh=None):
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_main
         self.dir = Path(checkpoint_dir).absolute()
         self.dir.mkdir(parents=True, exist_ok=True)
         self._writer = ThreadPoolExecutor(max_workers=1,
@@ -95,7 +120,10 @@ class CheckpointManager:
         t0 = time.perf_counter()
         path = self.dir / name
         self.wait()  # one write at a time; raises a failed earlier write
-        host = _state_to_host(state)
+        # rank 0 writes; the other ranks of its model group help gather
+        gathers = self.mesh is not None and self.mesh.model > 1 \
+            and self.mesh.data_index == 0
+        host = _state_to_host(state, self.mesh) if self.writes or gathers else None
         custom = {
             "epoch": epoch,
             "best_val_acc": best_val_acc,
@@ -104,7 +132,8 @@ class CheckpointManager:
             "epoch_sums": epoch_sums,
         }
         text = json.dumps(custom)  # serialized now: the caller's lists move on
-        self._pending = self._writer.submit(self._write, path, host, text)
+        if self.writes:
+            self._pending = self._writer.submit(self._write, path, host, text)
         if block:
             self.wait()
         self.blocked_ms.append((time.perf_counter() - t0) * 1e3)
@@ -125,10 +154,12 @@ class CheckpointManager:
         shutil.rmtree(old, ignore_errors=True)
 
     def wait(self) -> None:
-        """Block until the enqueued save is durable; raise if it failed."""
+        """Block until the enqueued save is durable; raise if it failed.
+        Over a mesh every rank then waits for the others."""
         pending, self._pending = self._pending, None
         if pending is not None:
             pending.result()
+        barrier(self.mesh)
 
     def _resolve(self, name_or_path: str | Path) -> Path:
         path = Path(name_or_path)
@@ -151,8 +182,14 @@ class CheckpointManager:
         saved = torch.load(path / _STATE_FILE, map_location="cpu",
                            weights_only=True)
         custom = json.loads((path / _CUSTOM_FILE).read_text())
-        state.student.load_state_dict(saved["student"], strict=True)
-        state.optimizer.load_state_dict(saved["optimizer"])
+        student, optimizer = saved["student"], saved["optimizer"]
+        if self.mesh is not None and self.mesh.model > 1:
+            heads = state.student.config.num_heads
+            student = shard_state_dict(student, self.mesh, heads)
+            optimizer = shard_optimizer_state(
+                optimizer, optimizer_names(state.student), self.mesh, heads)
+        state.student.load_state_dict(student, strict=True)
+        state.optimizer.load_state_dict(optimizer)
         with torch.no_grad():
             for key, value in saved["selector"].items():
                 getattr(state.selector, key).copy_(value)
@@ -165,10 +202,11 @@ class CheckpointManager:
     def save_weights(self, filename: str, params: Mapping[str, torch.Tensor],
                      epoch: int) -> Path:
         """Flat `.npz` of a student state dict (the port's keys) with
-        `__epoch__`."""
-        flat = {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+        `__epoch__`; over a mesh, rank 0's (a full state dict)."""
         path = self.dir / filename
-        np.savez(path, __epoch__=epoch, **flat)
+        if self.writes:
+            flat = {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+            np.savez(path, __epoch__=epoch, **flat)
         return path
 
     def load_weights(self, path: Path | str,

@@ -399,7 +399,9 @@ def _write_npy_chunked(path, shape, dtype, chunk_iter) -> None:
     """Stream chunks into a .npy file via buffered write() syscalls (page
     cache, not process RSS), then atomically rename into place."""
     path = Path(path)
-    tmp = path.with_suffix(".tmp")
+    # one temporary file per process: ranks that start together each write
+    # a whole copy and the last rename wins
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
     header = {
         "descr": np.lib.format.dtype_to_descr(np.dtype(dtype)),
         "fortran_order": False,

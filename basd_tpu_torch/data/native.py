@@ -5,8 +5,9 @@ The library is built from the repo's source with the flags of
 `native/Makefile` (`g++ -O3 -march=native -fPIC -shared -std=c++17`: with
 the host's FMAs its float64 sums round as the JAX package's library does)
 into `basd_tpu_torch/_build/libbasd_host-<hash of the source>.so` at first
-use (never into `native/`, and never the committed binary there), and a
-failed build raises: nothing switches to numpy quietly. The numpy versions
+use (never into `native/`, and never the committed binary there), under
+the kernels' build lock (one rank builds, the others wait), and a failed
+build raises: nothing switches to numpy quietly. The numpy versions
 (`resize_batch_u8_plain`, `welford_update_plain`) are the plain versions
 the tests hold the library against.
 
@@ -24,6 +25,8 @@ import threading
 from pathlib import Path
 
 import numpy as np
+
+from basd_tpu_torch.kernels import build_lock
 
 _SOURCE = Path(__file__).resolve().parents[2] / "native" / "basd_host.cpp"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -60,7 +63,9 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             path = _lib_path()
             if not path.exists():
-                _build(path)
+                with build_lock(_BUILD_DIR):
+                    if not path.exists():
+                        _build(path)
             lib = ctypes.CDLL(str(path))
             lib.resize_bilinear_u8.argtypes = [
                 ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,

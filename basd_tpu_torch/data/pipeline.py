@@ -14,6 +14,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from basd_tpu_torch.parallel.mesh import shard_rows
+
 
 def epoch_batches(
     images: np.ndarray,
@@ -22,14 +24,20 @@ def epoch_batches(
     rng: np.random.Generator,
     *,
     drop_last: bool = True,
+    shard: tuple[int, int] | None = None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Shuffled full batches; the same index order as the JAX package for
     the same generator. `images[idx]` is a fresh, writable copy even when
-    `images` is a read-only memory map."""
+    `images` is a read-only memory map. `shard` = (index, parts): yield
+    only part `index` of each batch (`parallel.mesh.shard_rows`), a
+    data-parallel rank's slice of the same global order."""
     order = rng.permutation(len(labels))
     num_batches = len(labels) // batch_size
     for b in range(num_batches):
         idx = order[b * batch_size : (b + 1) * batch_size]
+        if shard is not None:
+            lo, hi = shard_rows(len(idx), shard[1], shard[0])
+            idx = idx[lo:hi]
         yield images[idx], labels[idx]
     if not drop_last and len(labels) % batch_size:
         idx = order[num_batches * batch_size :]

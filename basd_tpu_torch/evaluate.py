@@ -9,7 +9,10 @@ train/eval contract: the snapshot carries the teacher-derived
 architecture) with drop_path 0 and no remat, loads a weights-only `.npz`
 export strictly, and runs the eval suite. Without `config=`, the config is
 composed from `experiment=...` and overrides as for training. Runs on the
-CUDA card by default; `main(argv, device="cpu")` on the CPU.
+CUDA card by default; `main(argv, device="cpu")` on the CPU. Launched by
+torchrun with more than one process, it evaluates over `hardware.mesh` as
+`train` does (each data rank its slices of the batches); in one process
+`hardware.mesh` is ignored.
 """
 
 from __future__ import annotations
@@ -22,12 +25,17 @@ from basd_tpu_torch.config import compose_config, compose_from_snapshot, save_co
 from basd_tpu_torch.device import resolve_device
 from basd_tpu_torch.evaluation.metrics import run_eval_suite, save_metrics
 from basd_tpu_torch.models import create_student
-from basd_tpu_torch.train import check_single_device, compute_dtype
+from basd_tpu_torch.parallel.mesh import mesh_from_config, shutdown
+from basd_tpu_torch.parallel.sharding_rules import shard_module
+from basd_tpu_torch.train import compute_dtype
 
 
 def run(config, *, device=None) -> dict:
-    check_single_device(config)
     dev = resolve_device(device)
+    mesh = mesh_from_config(config, dev)
+    if mesh is not None:
+        dev = mesh.device
+    main_rank = mesh is None or mesh.is_main
     output_dir = Path(config.run.output_dir) / config.run.name
     output_dir.mkdir(parents=True, exist_ok=True)
 
@@ -49,14 +57,17 @@ def run(config, *, device=None) -> dict:
     params, epoch = CheckpointManager(ckpt_path.parent).load_weights(
         ckpt_path, student.state_dict())
     student.load_state_dict(params, strict=True)
-    print(f"checkpoint_loaded path={ckpt_path} epoch={epoch}")
-
-    save_config(config, output_dir / "config.yaml")
+    student = shard_module(student, mesh)
+    if main_rank:
+        print(f"checkpoint_loaded path={ckpt_path} epoch={epoch}")
+        save_config(config, output_dir / "config.yaml")
 
     results = run_eval_suite(
         student, None, config, config_path=str(output_dir / "config.yaml"),
+        mesh=mesh,
     )
-    save_metrics(results, output_dir)
+    if main_rank:
+        save_metrics(results, output_dir)
     return results
 
 
@@ -81,3 +92,4 @@ def main(argv: list[str] | None = None, *, device=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    shutdown()

@@ -17,6 +17,12 @@ lower index: `jax.lax.top_k`'s tie rule, exact and deterministic
 (`torch.topk` makes no promise on ties). Top-1 is `argmax`, which takes the
 first maximum. The short tail batch runs at its own size (the JAX package
 pads it to a static shape and masks the padding: the same sums).
+
+Over a mesh (`parallel/mesh.py`, the JAX package's `sharding` argument)
+each data rank evaluates its slice of every batch (the tail's slices of
+uneven sizes, `shard_rows`) and the loss and hit sums are summed over the
+data group; the efficiency measurement runs on rank 0 on the one-process
+student and is broadcast.
 """
 
 from __future__ import annotations
@@ -40,6 +46,13 @@ from basd_tpu_torch.data.datasets import (
 )
 from basd_tpu_torch.data.pipeline import to_device
 from basd_tpu_torch.ops.preprocess import eval_view
+from basd_tpu_torch.parallel.mesh import (
+    broadcast_,
+    data_all_reduce,
+    main_print,
+    shard_rows,
+)
+from basd_tpu_torch.parallel.sharding_rules import full_module
 
 
 def _device_of(model: torch.nn.Module) -> torch.device:
@@ -77,9 +90,10 @@ def evaluate_model(
     batch_size: int,
     valid_indices: tuple[int, ...] | None = None,
     label_smoothing: float = 0.0,
+    mesh=None,
 ) -> dict[str, Any]:
     """top-1/top-5 accuracy (micro) + mean CE loss over a split, on the
-    model's device."""
+    model's device; over a `mesh`, this rank's slices of the batches."""
     device = _device_of(model)
     mean = tuple(float(m) for m in mean)
     std = tuple(float(s) for s in std)
@@ -90,8 +104,13 @@ def evaluate_model(
     top5 = torch.zeros((), dtype=torch.long, device=device)
     n = len(labels)
     for lo in range(0, n, batch_size):
-        imgs, labs = to_device((images_u8[lo : lo + batch_size],
-                                labels[lo : lo + batch_size]), device)
+        hi = min(lo + batch_size, n)
+        if mesh is not None:
+            a, b = shard_rows(hi - lo, mesh.data, mesh.data_index)
+            lo, hi = lo + a, lo + b
+            if lo == hi:
+                continue
+        imgs, labs = to_device((images_u8[lo:hi], labels[lo:hi]), device)
         x = eval_view(imgs, img_size, crop_ratio, mean, std)
         logits = _forward(model, params, x)
         if valid is not None:
@@ -102,8 +121,10 @@ def evaluate_model(
         loss_sum -= (smoothed * logp).sum()
         top1 += (logits.argmax(dim=-1) == labs).sum()
         top5 += topk_hits(logits, labs, min(5, c)).sum()
-    loss_sum, top1, top5 = (float(v) for v in torch.stack(
-        [loss_sum.double(), top1.double(), top5.double()]).cpu())
+    sums = torch.stack([loss_sum.double(), top1.double(), top5.double()])
+    if mesh is not None:
+        sums = data_all_reduce(sums, mesh, "eval_sums")
+    loss_sum, top1, top5 = (float(v) for v in sums.cpu())
     return {
         "val_acc": 100.0 * top1 / n,
         "val_acc_top5": 100.0 * top5 / n,
@@ -182,9 +203,12 @@ def run_eval_suite(
     config,
     *,
     config_path: str,
+    mesh=None,
 ) -> dict[str, Any]:
     """Primary + OOD robustness + efficiency. OOD sets use the PRIMARY
-    dataset's channel stats; subset datasets get logit masking."""
+    dataset's channel stats; subset datasets get logit masking. Over a
+    `mesh` every rank returns the same results."""
+    say = main_print(mesh)
     datasets_to_eval = [config.data.dataset] + list(config.data.eval_datasets)
     mean, std = get_channel_stats(config.data.dataset)
     crop_ratio = config.data.eval_crop_ratio
@@ -201,26 +225,30 @@ def run_eval_suite(
             model, params, images, labels,
             img_size=img_size, crop_ratio=crop_ratio, mean=mean, std=std,
             batch_size=config.data.batch_size, valid_indices=valid_indices,
+            mesh=mesh,
         )
         if ds_name == config.data.dataset:
             primary_results = metrics
         else:
             robustness_results[ds_name] = metrics
-        print(
+        say(
             f"eval {ds_name} "
             f"top1={metrics['val_acc']:.4f} top5={metrics['val_acc_top5']:.4f} "
             f"loss={metrics['loss']:.6f}"
         )
 
     eval_cfg = config.get("evaluation", {}) or {}
-    efficiency = measure_efficiency(
-        model, params,
+    efficiency_kw = dict(
         image_size=img_size,
         batch_size=eval_cfg.get("efficiency_batch_size", 64),
         num_warmup=eval_cfg.get("efficiency_warmup", 50),
         num_batches=eval_cfg.get("efficiency_batches", 200),
     )
-    print(
+    if mesh is None:
+        efficiency = measure_efficiency(model, params, **efficiency_kw)
+    else:
+        efficiency = _main_rank_efficiency(model, params, mesh, efficiency_kw)
+    say(
         f"efficiency params_m={efficiency['param_count_m']:.4f} "
         f"gflops={efficiency['gflops']:.4f} "
         f"throughput={efficiency['throughput_img_per_sec']:.2f} img/s"
@@ -232,6 +260,22 @@ def run_eval_suite(
         "robustness": robustness_results,
         "efficiency": efficiency,
     }
+
+
+def _main_rank_efficiency(model, params, mesh, efficiency_kw) -> dict[str, float]:
+    """`measure_efficiency` of the one-process student on rank 0, broadcast
+    to every rank."""
+    plain, plain_params = full_module(model, params, mesh)
+    keys = ("param_count", "param_count_m", "gflops", "throughput_img_per_sec")
+    values = torch.zeros(len(keys), dtype=torch.float64, device=mesh.device)
+    if mesh.is_main:
+        result = measure_efficiency(plain, plain_params, **efficiency_kw)
+        values = torch.tensor([float(result[k]) for k in keys], dtype=torch.float64,
+                              device=mesh.device)
+    values = broadcast_(values, mesh).tolist()
+    out = dict(zip(keys, values))
+    out["param_count"] = int(out["param_count"])
+    return out
 
 
 def save_metrics(results: dict[str, Any], output_dir: Path | str) -> Path:

@@ -4,7 +4,9 @@ Each kernel library is one `csrc/<name>.cu` file with a plain C interface,
 compiled by `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so`
 at first use and loaded with `ctypes`. The hash of the source is part of
 the file name, so an edited source is rebuilt and a stale library is never
-loaded. Nothing is built while a module is imported.
+loaded. Nothing is built while a module is imported. Builds hold an
+`fcntl` lock on `_build/.lock` (`build_lock`), so when several ranks start
+on a cold `_build/` one of them compiles and the others wait and load.
 
 `LAUNCHES` counts, per kernel wrapper, the calls that launched a kernel on
 the card. Wrappers add one where they launch and nowhere else; callers that
@@ -18,11 +20,13 @@ then the variant) counts each launch.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -104,12 +108,29 @@ def _nvcc_cmd(name: str, out: Path) -> list[str]:
     ]
 
 
+@contextmanager
+def build_lock(directory: Path):
+    """An exclusive `fcntl` lock on `directory/.lock` across processes
+    (released when the holder exits, however it exits)."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, str]:
     """Compile every kernel library that is not built yet, one `nvcc` per
-    source, all started together. Returns the compiler's output per
-    library (register and shared-memory use from `-Xptxas -v`); raises
-    if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source, all started together, under `build_lock`. Returns the
+    compiler's output per library (register and shared-memory use from
+    `-Xptxas -v`); raises if any build fails."""
+    with build_lock(BUILD_DIR):
+        return _build_missing()
+
+
+def _build_missing() -> dict[str, str]:
     procs = {}
     for name in _SIGNATURES:
         out = _lib_path(name)

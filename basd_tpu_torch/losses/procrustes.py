@@ -61,16 +61,19 @@ def procrustes_loss_mixed(
     student_tokens: torch.Tensor,  # (B, N_s, D_s)
     mixed_tokens: torch.Tensor,  # (B, N_t, D_t), NOT token-count aligned
     importance: torch.Tensor,  # (B, N_w)
+    *,
+    batch_total: int | None = None,
 ) -> torch.Tensor:
     """`procrustes_loss` on the unaligned mixed teacher tokens: the
     alignment happens in Gram space, G_aligned = A (M M^T) A^T with A the
     (N_s, N_t) interpolation matrix. Shapes outside the Gram route take
-    the explicit alignment."""
+    the explicit alignment. `batch_total`: see `procrustes_loss`."""
     n_s = student_tokens.shape[1]
     n_t = mixed_tokens.shape[1]
     if not n_s <= min(student_tokens.shape[-1], mixed_tokens.shape[-1]):
         return procrustes_loss(
-            student_tokens, align_token_count(mixed_tokens, n_s), importance
+            student_tokens, align_token_count(mixed_tokens, n_s), importance,
+            batch_total=batch_total,
         )
     w = _importance_weights(importance, n_s)
     g_s, g_s_r = _weighted_centered_gram(student_tokens, w)
@@ -80,24 +83,33 @@ def procrustes_loss_mixed(
         g_mix = a @ g_mix @ a.T
     g_t, g_t_r = _center_scale_gram(g_mix, w)
     nuc = nuclear_norm_pair_gram(g_s_r, g_t_r)
-    return torch.mean(_trace(g_s) + _trace(g_t) - 2.0 * nuc)
+    return _batch_mean(_trace(g_s) + _trace(g_t) - 2.0 * nuc, batch_total)
+
+
+def _batch_mean(per_sample: torch.Tensor, batch_total: int | None) -> torch.Tensor:
+    if batch_total is None:
+        return torch.mean(per_sample)
+    return torch.sum(per_sample) / batch_total
 
 
 def procrustes_loss(
     student_tokens: torch.Tensor,  # (B, N_s, D_s)
     teacher_tokens: torch.Tensor,  # (B, N_s, D_t), already aligned
     importance: torch.Tensor,  # (B, N_w)
+    *,
+    batch_total: int | None = None,
 ) -> torch.Tensor:
     """Procrustes loss on token-count-aligned tokens: the token-side Gram
     route when N_s <= min(D_s, D_t), else the feature-side route through
-    the (D_s, D_t) cross-covariance."""
+    the (D_s, D_t) cross-covariance. The batch mean divides by
+    `batch_total` when the batch is a slice of one that large."""
     n_s = student_tokens.shape[1]
     w = _importance_weights(importance, n_s)
     if n_s <= min(student_tokens.shape[-1], teacher_tokens.shape[-1]):
         g_s, g_s_r = _weighted_centered_gram(student_tokens, w)
         g_t, g_t_r = _weighted_centered_gram(teacher_tokens, w)
         nuc = nuclear_norm_pair_gram(g_s_r, g_t_r)
-        return torch.mean(_trace(g_s) + _trace(g_t) - 2.0 * nuc)
+        return _batch_mean(_trace(g_s) + _trace(g_t) - 2.0 * nuc, batch_total)
 
     s = student_tokens.float()
     t = teacher_tokens.float()
@@ -107,4 +119,4 @@ def procrustes_loss(
     tr_s = torch.sum(s_w * s_w, dim=(1, 2))
     tr_t = torch.sum(t_w * t_w, dim=(1, 2))
     nuc = nuclear_norm_gram(s_w.transpose(-1, -2) @ t_w)
-    return torch.mean(tr_s + tr_t - 2.0 * nuc)
+    return _batch_mean(tr_s + tr_t - 2.0 * nuc, batch_total)

@@ -7,6 +7,13 @@ spectra are one batch. Teacher statistics carry no gradient; the student
 eigenbasis and the principal-angle spectrum do, so gradients reach the P
 temperatures and the student tokens through the mixing weights.
 
+Over a data-parallel mesh (`parallel/mesh.py`) the Grams, the token sums
+and the counts are sums over the data group, so the MP ranks, subspaces
+and angle spectra are those of the global batch and identical on every
+rank (the JAX package's global-batch statistics). The teacher's sums carry
+no gradient; the student's go through `data_sum`, whose backward sums the
+ranks' upstream gradients.
+
 Dtype contract: teacher tokens are consumed in their compute dtype (the
 projection upcasts the bf16-rounded operands and multiplies in fp32); the
 mixed teacher tokens are stored back in the teacher dtype; everything else
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 
 from basd_tpu_torch.device import resolve_device
 from basd_tpu_torch.models.teacher import extract_intermediates
+from basd_tpu_torch.parallel.mesh import data_sum
 from basd_tpu_torch.spectral import (
     marchenko_pastur_rank,
     marchenko_pastur_rank_gram,
@@ -101,6 +109,15 @@ def calibrate_subspace_k(
     return k
 
 
+def _global_moments(z: torch.Tensor, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Gram z^T z, token sum) of (L, M, D) tokens, each summed over the
+    data group in one all-reduce."""
+    d = z.shape[-1]
+    local = torch.cat([(z.transpose(-1, -2) @ z).flatten(1), z.sum(dim=-2)], dim=1)
+    total = data_sum(local, mesh)
+    return total[:, :d * d].reshape(-1, d, d), total[:, d * d:]
+
+
 def select_and_mix(
     state: SelectorState,
     student_tokens: torch.Tensor,  # (P, B, N_s, D_s)
@@ -108,14 +125,18 @@ def select_and_mix(
     teacher_importance: torch.Tensor,  # (L, B, N_t)
     *,
     subspace_k: int | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Soft-select teacher layers per extraction point. Returns
-    (mixed_tokens (P, B, N_t, D_t), mixed_importance (P, B, N_t), aux)."""
+    (mixed_tokens (P, B, N_t, D_t), mixed_importance (P, B, N_t), aux).
+    Over a `mesh` the tokens are this rank's slice of the global batch
+    (every rank's slice the same size) and the statistics global."""
     p, b, n_s, d_s = student_tokens.shape
     l, _, n_t, d_t = teacher_tokens.shape
     if subspace_k is None:
         subspace_k = min(_DEFAULT_SUBSPACE_K, d_s - 1)
-    k = min(subspace_k, d_s - 1, b * n_s, b * n_t)
+    b_total = b if mesh is None else b * mesh.data
+    k = min(subspace_k, d_s - 1, b_total * n_s, b_total * n_t)
 
     proj_t = state.proj_t.detach()
     proj_s = state.proj_s.detach()
@@ -123,18 +144,26 @@ def select_and_mix(
     # ---- teacher statistics (no gradient) ----
     with torch.no_grad():
         z_t = _project(teacher_tokens.reshape(l, b * n_t, d_t), proj_t)
-        m_t = b * n_t
-        g_t = z_t.transpose(-1, -2) @ z_t
-        mu_t = z_t.mean(dim=-2)
+        m_t = b_total * n_t
+        if mesh is None:
+            g_t = z_t.transpose(-1, -2) @ z_t
+            mu_t = z_t.mean(dim=-2)
+        else:
+            g_t, sum_t = _global_moments(z_t, mesh)
+            mu_t = sum_t / m_t
         ranks = torch.clamp(marchenko_pastur_rank_gram(g_t, m_t), 1, k)
         g_ct = g_t - m_t * mu_t[:, :, None] * mu_t[:, None, :]
     basis_t, svals_t = topk_basis_gram_nograd(g_ct, k)  # (L, D_s, K), (L, K)
 
     # ---- student subspaces (differentiable) ----
     z_s = student_tokens.float().reshape(p, b * n_s, d_s) @ proj_s.T
-    m_s = b * n_s
-    g_s = z_s.transpose(-1, -2) @ z_s
-    mu_s = z_s.mean(dim=-2)
+    m_s = b_total * n_s
+    if mesh is None:
+        g_s = z_s.transpose(-1, -2) @ z_s
+        mu_s = z_s.mean(dim=-2)
+    else:
+        g_s, sum_s = _global_moments(z_s, mesh)
+        mu_s = sum_s / m_s
     g_cs = g_s - m_s * mu_s[:, :, None] * mu_s[:, None, :]
     basis_s, _ = topk_basis_gram(g_cs, k)  # (P, D_s, K)
 

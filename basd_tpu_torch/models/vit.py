@@ -13,6 +13,16 @@ card); a ViT without one takes the einsum chain, whose normalized attention
 its importance needs. `ViTConfig.remat` recomputes each block in the
 backward (`torch.utils.checkpoint`), with the block's drop-path draws made
 before the checkpointed call so the recomputation sees the same masks.
+
+Tensor parallelism (a `parallel.mesh.Mesh` with a model axis, built by
+`parallel.sharding_rules.shard_module`): each block's qkv and fc1 are
+column-parallel and its proj and fc2 row-parallel (Megatron), the row
+products summed over the model group in fp32 before the bias; K1/K2 run
+on the rank's H/tp heads in its (B, N, D/tp) layout, and the CLS
+importance sums the heads over the model group. Where tp does not divide
+the heads (DeiT-Tiny's 3 at tp = 2) the attention stays whole on every
+rank and only the MLP splits: the same function, with K1/K2 on all heads
+(the JAX package drops to its XLA chain there, `basd_tpu/ops/attention.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from basd_tpu_torch.ops.activations import gelu
+from basd_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
+from basd_tpu_torch.parallel.sharding_rules import attention_split
 from basd_tpu_torch.ops.attention import (
     attention_mean_importance,
     fused_attention,
@@ -71,6 +83,13 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _row_linear(x: torch.Tensor, layer: nn.Linear, dtype, mesh) -> torch.Tensor:
+    """A row-parallel linear: this rank's partial product, summed over the
+    model group in fp32, plus the whole bias."""
+    part = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return (reduce_from_model(part, mesh) + layer.bias.float()).to(dtype)
+
+
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(
         x.float(), layer.normalized_shape, layer.weight, layer.bias, _LN_EPS
@@ -91,11 +110,18 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def draw(self, x, train: bool, generator: torch.Generator | None):
+    def draw(self, x, train: bool, generator: torch.Generator | None, rows=None):
+        """`rows` = (lo, total): x holds rows lo.. of a global batch of
+        `total`, whose draws are made whole and sliced."""
         if not train or self.rate == 0.0:
             return None
-        return torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
-                          generator=generator)
+        if rows is None:
+            return torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device,
+                              generator=generator)
+        lo, total = rows
+        u = torch.rand((total,) + (1,) * (x.ndim - 1), device=x.device,
+                       generator=generator)
+        return u[lo:lo + x.shape[0]]
 
     def forward(self, x, u: torch.Tensor | None):
         if u is None:
@@ -107,27 +133,39 @@ class DropPath(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention returning (tokens, CLS importance)."""
 
-    def __init__(self, dim: int, num_heads: int, has_cls_token: bool):
+    def __init__(self, dim: int, num_heads: int, has_cls_token: bool, mesh=None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.has_cls_token = has_cls_token
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        # split by whole heads over the model group, or whole on every rank
+        self.mesh = mesh if mesh is not None and attention_split(
+            num_heads, mesh.model) else None
+        if self.mesh is not None and not has_cls_token:
+            raise ValueError("a tensor-parallel attention needs a CLS token")
+        tp = 1 if self.mesh is None else mesh.model
+        self.qkv = nn.Linear(dim, 3 * dim // tp)
+        self.proj = nn.Linear(dim // tp, dim)
 
     def _cls_importance(self, q, k, scale):
         """CLS-row attention over patch keys, mean over heads, in fp32 from
         the unscaled (B, N, D) q and k."""
         b, n, d = k.shape
+        heads = self.num_heads if self.mesh is None else self.num_heads // self.mesh.model
         prod = k.float() * q[:, :1].float()  # (B, N, D)
-        cls_logits = prod.reshape(b, n, self.num_heads, -1).sum(-1)
+        cls_logits = prod.reshape(b, n, heads, -1).sum(-1)
         cls_logits = cls_logits.transpose(1, 2) * scale  # (B, H, N)
-        return torch.softmax(cls_logits, dim=-1)[:, :, 1:].mean(dim=1)
+        if self.mesh is None:
+            return torch.softmax(cls_logits, dim=-1)[:, :, 1:].mean(dim=1)
+        part = torch.softmax(cls_logits, dim=-1)[:, :, 1:].sum(dim=1)
+        return reduce_from_model(part, self.mesh) / self.num_heads
 
     def forward(self, x, dtype):
         b, n, _ = x.shape
-        d = self.dim
-        hd = d // self.num_heads
+        hd = self.dim // self.num_heads
         scale = hd**-0.5
+        if self.mesh is not None:
+            x = copy_to_model(x, self.mesh)
+        d = self.proj.in_features  # D, or D/tp under tensor parallelism
         qkv = _linear(x, self.qkv, dtype)  # (B, N, 3D)
         q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
         q_scaled = (q.float() * scale).to(dtype)
@@ -135,23 +173,34 @@ class Attention(nn.Module):
             # the importance averages the normalized attention over heads
             # and queries, which the kernel never forms: never K1 here
             out, importance = attention_mean_importance(q_scaled, k, v, hd)
-            return _linear(out, self.proj, dtype), importance
+            return self._proj(out, dtype), importance
         if supports_fused(n, d, hd):
             out = fused_attention(q_scaled, k, v, hd)
         else:
             out = xla_attention_ref(q_scaled, k, v, hd)
-        out = _linear(out, self.proj, dtype)
-        return out, self._cls_importance(q, k, scale)
+        return self._proj(out, dtype), self._cls_importance(q, k, scale)
+
+    def _proj(self, out, dtype):
+        if self.mesh is None:
+            return _linear(out, self.proj, dtype)
+        return _row_linear(out, self.proj, dtype, self.mesh)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, mesh=None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        tp = 1 if self.mesh is None else mesh.model
+        if hidden % tp:
+            raise ValueError(f"MLP width {hidden} not divisible by model={tp}")
+        self.fc1 = nn.Linear(dim, hidden // tp)
+        self.fc2 = nn.Linear(hidden // tp, dim)
 
     def forward(self, x, dtype):
-        return _linear(gelu(_linear(x, self.fc1, dtype)), self.fc2, dtype)
+        if self.mesh is None:
+            return _linear(gelu(_linear(x, self.fc1, dtype)), self.fc2, dtype)
+        h = gelu(_linear(copy_to_model(x, self.mesh), self.fc1, dtype))
+        return _row_linear(h, self.fc2, dtype, self.mesh)
 
 
 class LayerScale(nn.Module):
@@ -167,13 +216,13 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig, drop_path: float):
+    def __init__(self, cfg: ViTConfig, drop_path: float, mesh=None):
         super().__init__()
         d = cfg.embed_dim
         self.norm1 = nn.LayerNorm(d, eps=_LN_EPS)
-        self.attn = Attention(d, cfg.num_heads, cfg.has_cls_token)
+        self.attn = Attention(d, cfg.num_heads, cfg.has_cls_token, mesh)
         self.norm2 = nn.LayerNorm(d, eps=_LN_EPS)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio))
+        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), mesh)
         if cfg.layer_scale_init is not None:
             self.ls1 = LayerScale(d, cfg.layer_scale_init)
             self.ls2 = LayerScale(d, cfg.layer_scale_init)
@@ -182,10 +231,10 @@ class Block(nn.Module):
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
-    def draw(self, x, train, generator):
+    def draw(self, x, train, generator, rows=None):
         """The block's two drop-path draws, in the order the paths apply."""
-        return (self.drop_path1.draw(x, train, generator),
-                self.drop_path2.draw(x, train, generator))
+        return (self.drop_path1.draw(x, train, generator, rows),
+                self.drop_path2.draw(x, train, generator, rows))
 
     def forward(self, x, dtype, u1, u2):
         y, importance = self.attn(_layer_norm(x, self.norm1), dtype)
@@ -205,9 +254,12 @@ class VisionTransformer(nn.Module):
     """DeiT-style ViT. `capture_layers` selects the blocks whose post-block
     tokens (CLS stripped) and importance vectors are returned. Call
     `init_weights(seed)` (the entry points do) for the JAX package's
-    initialization."""
+    initialization. With a `mesh` that has a model axis the blocks hold
+    this rank's tensor-parallel shards (`sharding_rules.shard_module` builds
+    one from a full student)."""
 
-    def __init__(self, config: ViTConfig, capture_layers: tuple[int, ...] = ()):
+    def __init__(self, config: ViTConfig, capture_layers: tuple[int, ...] = (),
+                 mesh=None):
         super().__init__()
         cfg = self.config = config
         self.capture_layers = tuple(capture_layers)
@@ -222,6 +274,7 @@ class VisionTransformer(nn.Module):
                 cfg,
                 cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
                 if cfg.drop_path_rate > 0 else 0.0,
+                mesh,
             )
             for i in range(cfg.depth)
         )
@@ -267,7 +320,12 @@ class VisionTransformer(nn.Module):
         *,
         train: bool = False,
         generator: torch.Generator | None = None,
+        batch_rows: tuple[int, int] | None = None,
     ) -> ViTOutput:
+        """`batch_rows` = (lo, total) when x holds rows lo.. of a global
+        batch of `total` (a data-parallel rank's slice): the drop-path draws
+        are made for the global batch and sliced, so every rank draws what
+        one process would."""
         cfg = self.config
         dt = cfg.dtype
         b = x.shape[0]
@@ -285,7 +343,7 @@ class VisionTransformer(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         tokens, imps = [], []
         for i, blk in enumerate(self.blocks):
-            draws = blk.draw(x, train, generator)
+            draws = blk.draw(x, train, generator, batch_rows)
             if remat:
                 # the body draws nothing from any generator, so no RNG
                 # state needs to be kept for the recomputation

@@ -7,7 +7,10 @@ its roll-by-1 neighbour, and returns soft targets
 lam * y + (1 - lam) * y_rolled (torchvision v2
 `RandomChoice([MixUp(alpha=1), CutMix(alpha=1)])`). As in `augment`, a
 sampler draws from a `torch.Generator` and `mixup_cutmix` is a
-deterministic function of the draws.
+deterministic function of the draws. On a data-parallel rank the batch is
+a slice of the global batch and the roll crosses the slice's first row:
+`neighbour` gives it the sample before the slice (`parallel.mesh.data_shift`
+of the previous rank's last one).
 """
 
 from __future__ import annotations
@@ -50,11 +53,19 @@ def mixup_cutmix(
     draws: MixDraws,
     *,
     num_classes: int,
+    neighbour: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`neighbour`: (image (H, W, C), one-hot (C,)) of the sample that
+    precedes row 0 in the global batch, where `images` is a slice of it;
+    without it the roll wraps within `images`."""
     use_cutmix, lam, box_y, box_x = draws
-    rolled_images = torch.roll(images, 1, dims=0)
     onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
-    rolled_targets = torch.roll(onehot, 1, dims=0)
+    if neighbour is None:
+        rolled_images = torch.roll(images, 1, dims=0)
+        rolled_targets = torch.roll(onehot, 1, dims=0)
+    else:
+        rolled_images = torch.cat([neighbour[0][None].to(images.dtype), images[:-1]])
+        rolled_targets = torch.cat([neighbour[1][None], onehot[:-1]])
 
     mixed_mixup = lam * images + (1.0 - lam) * rolled_images
 
@@ -78,3 +89,16 @@ def mixup_cutmix(
     lam_eff = torch.where(use_cutmix, lam_cutmix, lam)
     targets = lam_eff * onehot + (1.0 - lam_eff) * rolled_targets
     return images_out, targets
+
+
+def shard_neighbour(images: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                    mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The `neighbour` of this data rank's slice: the previous data rank's
+    last image and one-hot label (the last rank's for rank 0), in one sum
+    over the data group."""
+    from basd_tpu_torch.parallel.mesh import data_shift
+
+    last = torch.cat([images[-1].reshape(-1).float(),
+                      F.one_hot(labels[-1].long(), num_classes).float()])
+    prev = data_shift(last, mesh)
+    return prev[:-num_classes].view_as(images[-1]).to(images.dtype), prev[-num_classes:]

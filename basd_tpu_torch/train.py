@@ -10,18 +10,32 @@ snapshot -> optional resume -> train -> final eval suite -> metrics.json.
 
 Runs on one CUDA card by default; `main(argv, device="cpu")` runs the
 plain torch path on the CPU. `hardware.precision` picks the compute dtype
-and `hardware.remat` recomputes the student's blocks in the backward. The
-port has no multi-device path yet: a mesh other than one device raises.
+and `hardware.remat` recomputes the student's blocks in the backward.
+
+Launched by torchrun with more than one process, the run is data and
+tensor parallel over `hardware.mesh` (`parallel/mesh.py`):
+
+    python -m torch.distributed.run --nproc_per_node=N -m basd_tpu_torch.train \
+        experiment=basd_cifar100 hardware.mesh.data=N hardware.mesh.model=1
+
+The intrinsic-dimension and K calibrations run on rank 0 and are
+broadcast, rank 0 prints and writes, and each rank ends with one
+`rank_summary` line (its K, steps, kernel launches, step ms, peak memory
+and the digest of its training state). In one process `hardware.mesh` is
+ignored, as the JAX package ignores it on one device.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import sys
 from pathlib import Path
 
 import torch
 
+from basd_tpu_torch import kernels
 from basd_tpu_torch.config import compose_config, save_config
 from basd_tpu_torch.data.datasets import (
     dataset_info,
@@ -40,30 +54,28 @@ from basd_tpu_torch.models import (
     resolve_preset,
 )
 from basd_tpu_torch.ops.preprocess import eval_view
-from basd_tpu_torch.training.trainer import Trainer
+from basd_tpu_torch.parallel.mesh import (
+    broadcast_int,
+    main_print,
+    mesh_from_config,
+    shutdown,
+)
+from basd_tpu_torch.training.trainer import Trainer, state_digest
 
 
 def compute_dtype(config) -> torch.dtype:
     return torch.bfloat16 if config.hardware.precision == "bfloat16" else torch.float32
 
 
-def check_single_device(config) -> None:
-    """The port runs on one device: a mesh that asks for more raises
-    (data and tensor parallelism are not ported yet)."""
-    mesh = config.hardware.mesh
-    if mesh.model != 1 or mesh.data not in (-1, 1):
-        raise ValueError(
-            f"hardware.mesh {dict(mesh)}: basd_tpu_torch runs on one device "
-            "(data -1 or 1, model 1); data and tensor parallelism are M8 in "
-            "ROADMAP.md, not ported yet"
-        )
-
-
 def run(config, *, device=None) -> tuple[dict, Trainer]:
     """Train and evaluate as `config` says; returns (the metrics.json
     results, the trainer)."""
-    check_single_device(config)
     dev = resolve_device(device)
+    mesh = mesh_from_config(config, dev)
+    if mesh is not None:
+        dev = mesh.device
+    main_rank = mesh is None or mesh.is_main
+    say = main_print(mesh)
     output_dir = Path(config.run.output_dir) / config.run.name
     output_dir.mkdir(parents=True, exist_ok=True)
 
@@ -86,12 +98,15 @@ def run(config, *, device=None) -> tuple[dict, Trainer]:
             img_size,
         )
         num_calib = min(num_calib, len(calib_u8))
-        (calib_t,) = to_device((calib_u8[:num_calib],), dev)
-        calib = eval_view(calib_t, img_size, config.data.eval_crop_ratio,
-                          teacher.mean, teacher.std)
-        intrinsic_dim = estimate_intrinsic_dim(teacher, calib)
+        intrinsic_dim = None
+        if main_rank:
+            (calib_t,) = to_device((calib_u8[:num_calib],), dev)
+            calib = eval_view(calib_t, img_size, config.data.eval_crop_ratio,
+                              teacher.mean, teacher.std)
+            intrinsic_dim = estimate_intrinsic_dim(teacher, calib)
+        intrinsic_dim = broadcast_int(intrinsic_dim, mesh)
         arch_overrides = derive_student_arch(teacher.spec, intrinsic_dim)
-        print(
+        say(
             f"student_arch_derived intrinsic_dim={intrinsic_dim} "
             f"embed_dim={arch_overrides['embed_dim']} "
             f"depth={arch_overrides['depth']} "
@@ -117,7 +132,7 @@ def run(config, *, device=None) -> tuple[dict, Trainer]:
         device=dev,
         seed=config.run.seed,
     )
-    print(
+    say(
         f"student_created embed_dim={student_cfg.embed_dim} "
         f"depth={student_cfg.depth} num_heads={student_cfg.num_heads} "
         f"num_tokens={student_cfg.num_patches} "
@@ -137,17 +152,20 @@ def run(config, *, device=None) -> tuple[dict, Trainer]:
     # ---- subspace-K calibration (basd.subspace_k: auto): the teacher's MP
     # ranks measured once, the static K-cap sized with headroom ----
     if config.basd.get("subspace_k") == "auto":
-        calib_n = min(config.data.batch_size, len(train_images))
-        (calib_t,) = to_device((train_images[:calib_n],), dev)
-        calib = eval_view(calib_t, img_size, config.data.eval_crop_ratio,
-                          teacher.mean, teacher.std)
-        config.basd.subspace_k = calibrate_subspace_k(
-            teacher,
-            student_cfg.embed_dim,
-            calib,
-            seed=config.run.seed,
-            num_extraction_points=config.basd.num_extraction_points,
-        )
+        k = None
+        if main_rank:
+            calib_n = min(config.data.batch_size, len(train_images))
+            (calib_t,) = to_device((train_images[:calib_n],), dev)
+            calib = eval_view(calib_t, img_size, config.data.eval_crop_ratio,
+                              teacher.mean, teacher.std)
+            k = calibrate_subspace_k(
+                teacher,
+                student_cfg.embed_dim,
+                calib,
+                seed=config.run.seed,
+                num_extraction_points=config.basd.num_extraction_points,
+            )
+        config.basd.subspace_k = broadcast_int(k, mesh)
 
     trainer = Trainer(
         config,
@@ -156,9 +174,12 @@ def run(config, *, device=None) -> tuple[dict, Trainer]:
         teacher=teacher,
         teacher_stats=(teacher.mean, teacher.std),
         dataset_stats=dataset_stats,
+        mesh=mesh,
     )
+    del student  # the trainer's (a tensor-parallel twin over a model axis)
 
-    save_config(config, output_dir / "config.yaml")
+    if main_rank:
+        save_config(config, output_dir / "config.yaml")
 
     start_epoch = 0
     if config.checkpoint.resume_from:
@@ -170,13 +191,35 @@ def run(config, *, device=None) -> tuple[dict, Trainer]:
     )
 
     results = run_eval_suite(
-        student,
+        trainer.state.student,
         trainer.eval_model_params(),
         config,
         config_path=str(output_dir / "config.yaml"),
+        mesh=mesh,
     )
-    save_metrics(results, output_dir)
+    if main_rank:
+        save_metrics(results, output_dir)
+    if mesh is not None:
+        print_rank_summary(trainer, mesh)
     return results, trainer
+
+
+def print_rank_summary(trainer: Trainer, mesh) -> None:
+    """One line per rank: what a launcher checks to see that the ranks
+    agree and went through the kernels."""
+    dev = mesh.device
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+    line = "rank_summary " + json.dumps({
+        "rank": mesh.rank, "data_index": mesh.data_index,
+        "model_index": mesh.model_index, "mesh": mesh.shape,
+        "backend": mesh.backend, "subspace_k": trainer.config.basd.subspace_k,
+        "steps": trainer.state.step, "launches": dict(kernels.LAUNCHES),
+        "step_ms": trainer.step_ms, "peak_gib": peak,
+        "state_digest": state_digest(trainer.state),
+    }) + "\n"
+    # one write, so the ranks' lines do not interleave on a shared stdout
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), line.encode())
 
 
 def main(argv: list[str] | None = None, *, device=None) -> tuple[dict, Trainer]:
@@ -187,3 +230,4 @@ def main(argv: list[str] | None = None, *, device=None) -> tuple[dict, Trainer]:
 
 if __name__ == "__main__":
     main()
+    shutdown()

@@ -7,10 +7,17 @@ mid-epoch save reads values back. Evaluation runs at the ScheduleFree
 x-point through `torch.func.functional_call`, so the training parameters
 (the y-point) are never touched. Step times come from CUDA events
 recorded after each step (no host sync; on the CPU, the host clock).
+
+Over a mesh (`parallel/mesh.py`, the JAX trainer's `mesh`) each rank
+trains on its slice of the same global batch order, with the student's
+tensor-parallel shards where the mesh has a model axis; the step's metrics
+are global, so every rank takes the same decisions; rank 0 prints and
+writes the checkpoints, which hold the one-process state.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import time
 from collections import defaultdict
@@ -25,6 +32,8 @@ from basd_tpu_torch.evaluation.metrics import evaluate_model
 from basd_tpu_torch.losses import extraction_points, init_selector
 from basd_tpu_torch.models.teacher import Teacher
 from basd_tpu_torch.models.vit import VisionTransformer, ViTConfig
+from basd_tpu_torch.parallel.mesh import main_print
+from basd_tpu_torch.parallel.sharding_rules import gather_state_dict, shard_module
 from basd_tpu_torch.training.train_step import make_train_step
 
 
@@ -52,6 +61,29 @@ class _StepClock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
+def state_digest(state) -> str:
+    """sha256 of a `TrainState`'s bytes: the student's state dict, each
+    optimizer slot's z and v, the optimizer's step and weight sum, the
+    log-temperatures, the generator's state and the step. Equal digests
+    mean bit-identical states."""
+    h = hashlib.sha256()
+
+    def add(t: torch.Tensor) -> None:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+
+    for t in state.student.state_dict().values():
+        add(t)
+    group = state.optimizer.param_groups[0]
+    for p in group["params"]:
+        add(state.optimizer.state[p]["z"])
+        add(state.optimizer.state[p]["exp_avg_sq"])
+    h.update(repr((group["step"], group["weight_sum"])).encode())
+    add(state.selector.log_temperatures)
+    add(state.generator.get_state())
+    h.update(str(state.step).encode())
+    return h.hexdigest()
+
+
 class Trainer:
     def __init__(
         self,
@@ -62,11 +94,17 @@ class Trainer:
         teacher: Teacher,
         teacher_stats: tuple,
         dataset_stats: tuple,
+        mesh=None,
     ):
         """The student is trained on its own device (where `create_student`
         put it); the selector is drawn from `run.seed + 1`, the step's
-        generator seeded with `run.seed`."""
+        generator seeded with `run.seed`. Over a `mesh` with a model axis
+        the full `student` is replaced by this rank's tensor-parallel
+        twin (`self.state.student`)."""
         self.config = config
+        self.mesh = mesh
+        self._say = main_print(mesh)
+        student = shard_module(student, mesh)
         self.student = student
         self.teacher = teacher
         self.device = next(student.parameters()).device
@@ -92,11 +130,12 @@ class Trainer:
             dataset_stats=dataset_stats,
             num_classes=config.model.num_classes,
             subspace_k=config.basd.get("subspace_k"),
+            mesh=mesh,
         )
         self.state = init_fn(config.run.seed, selector)
 
         ckpt_dir = Path(config.run.output_dir) / config.run.name / "checkpoints"
-        self.checkpoints = CheckpointManager(ckpt_dir)
+        self.checkpoints = CheckpointManager(ckpt_dir, mesh=mesh)
 
         self.best_val_acc = 0.0
         self.metrics_history: dict[str, list] = defaultdict(list)
@@ -139,11 +178,13 @@ class Trainer:
         losses = list(epoch_sums["losses"]) if epoch_sums else []
         accs = list(epoch_sums["accs"]) if epoch_sums else []
         batch_idx = start_batch
+        shard = None if self.mesh is None else (self.mesh.data_index, self.mesh.data)
         clock = _StepClock(self.device)
         clock.mark()
         for imgs, labs in prefetch_to_device(
             itertools.islice(
-                epoch_batches(images, labels, batch_size, rng), start_batch, None
+                epoch_batches(images, labels, batch_size, rng, shard=shard),
+                start_batch, None,
             ),
             device=self.device,
         ):
@@ -190,6 +231,7 @@ class Trainer:
             mean=self._eval_stats[0],
             std=self._eval_stats[1],
             batch_size=cfg.data.batch_size,
+            mesh=self.mesh,
         )
 
     # ------------------------------------------------------------------
@@ -204,7 +246,11 @@ class Trainer:
         )
 
     def save_weights(self, filename: str, epoch: int) -> None:
-        self.checkpoints.save_weights(filename, self.eval_model_params(), epoch)
+        params = self.eval_model_params()
+        if self.mesh is not None and self.mesh.model > 1:
+            params = gather_state_dict(params, self.mesh,
+                                       self.state.student.config.num_heads)
+        self.checkpoints.save_weights(filename, params, epoch)
 
     def load_checkpoint(self, checkpoint_path: str) -> int:
         """Restore the full training state; returns the epoch to resume at.
@@ -242,7 +288,7 @@ class Trainer:
             )
             val_metrics = self.evaluate(val_images, val_labels)
 
-            print(
+            self._say(
                 f"epoch {epoch + 1}/{num_epochs} "
                 f"train_loss={train_metrics['train_loss']:.6f} "
                 f"train_acc={train_metrics['train_acc']:.4f} "
@@ -261,5 +307,5 @@ class Trainer:
 
         self.save_weights("final_model.npz", num_epochs - 1)
         self.checkpoints.wait()  # drain the async save before returning
-        print(f"training complete best_val_acc={self.best_val_acc:.4f}")
+        self._say(f"training complete best_val_acc={self.best_val_acc:.4f}")
         return dict(self.metrics_history)

@@ -27,7 +27,8 @@ from basd_tpu_torch.data import load_split_arrays
 from basd_tpu_torch.losses import extraction_points
 from basd_tpu_torch.models import create_student, load_teacher
 from basd_tpu_torch.training import train_step as ttrain
-from basd_tpu_torch.training.trainer import Trainer
+from basd_tpu_torch.parallel.mesh import create_mesh, mesh_from_config
+from basd_tpu_torch.training.trainer import Trainer, state_digest
 from test_torch_helpers import CPU, carry_vit, jax_step_draws
 
 torch.set_num_threads(1)
@@ -250,11 +251,33 @@ def test_train_and_evaluate_entry_points(tmp_path):
     assert (tmp_path / "eval" / "basd_smoke" / "metrics.json").exists()
 
 
-def test_entry_points_refuse_a_mesh_beyond_one_device(tmp_path):
-    for ov in ("hardware.mesh.model=2", "hardware.mesh.data=4"):
-        with pytest.raises(ValueError, match="one device"):
-            ttrain_entry.main(["experiment=basd_smoke", f"run.output_dir={tmp_path}",
-                               ov], device="cpu")
+def test_entry_points_refuse_a_mesh_beyond_one_device(monkeypatch):
+    """A mesh larger than the launched world is refused before any process
+    group starts: by `create_mesh` in one process, and by the entry points'
+    `mesh_from_config` under a launcher's world of 2."""
+    for data, model in ((4, 1), (3, 2), (1, 2)):
+        with pytest.raises(ValueError, match="processes"):
+            create_mesh(data, model)
+    config = compose_config(["experiment=basd_smoke", "hardware.mesh.data=4"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=r"mesh 4x1 != 2 processes"):
+        mesh_from_config(config, "cpu")
+
+
+def test_one_process_run_ignores_the_mesh(tmp_path):
+    """In one process `hardware.mesh` is ignored, as the JAX package ignores
+    it on one device: a run with data=4 x model=2 trains and evaluates as
+    the run without it, bit for bit."""
+    argv = ["experiment=basd_smoke", "data.dataset=synthetic/cifar10-like-128n",
+            "evaluation.efficiency_batches=2", "model.arch_overrides={depth: 2}"]
+    plain, t_plain = ttrain_entry.main(
+        [*argv, f"run.output_dir={tmp_path / 'plain'}"], device="cpu")
+    meshed, t_meshed = ttrain_entry.main(
+        [*argv, f"run.output_dir={tmp_path / 'mesh'}", "hardware.mesh.data=4",
+         "hardware.mesh.model=2"], device="cpu")
+    assert t_meshed.mesh is None
+    assert meshed["primary"] == plain["primary"]
+    assert state_digest(t_meshed.state) == state_digest(t_plain.state)
 
 
 def test_the_split_the_port_trains_on_is_the_jax_packages():
