@@ -20,8 +20,9 @@ tensor parallel over `hardware.mesh` (`parallel/mesh.py`):
 
 The intrinsic-dimension and K calibrations run on rank 0 and are
 broadcast, rank 0 prints and writes, and each rank ends with one
-`rank_summary` line (its K, steps, kernel launches, step ms, peak memory
-and the digest of its training state). In one process `hardware.mesh` is
+`rank_summary` line (its K, steps, kernel launches, those of the
+trainer's kernel start-up check among them, step ms, peak memory and the
+digest of its training state). In one process `hardware.mesh` is
 ignored, as the JAX package ignores it on one device.
 """
 
@@ -214,6 +215,8 @@ def print_rank_summary(trainer: Trainer, mesh) -> None:
         "model_index": mesh.model_index, "mesh": mesh.shape,
         "backend": mesh.backend, "subspace_k": trainer.config.basd.subspace_k,
         "steps": trainer.state.step, "launches": dict(kernels.LAUNCHES),
+        "kernel_check_launches": trainer.kernel_check_launches,
+        "kernel_check_s": trainer.kernel_check_s,
         "step_ms": trainer.step_ms, "peak_gib": peak,
         "state_digest": state_digest(trainer.state),
     }) + "\n"

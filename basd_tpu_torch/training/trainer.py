@@ -8,6 +8,9 @@ x-point through `torch.func.functional_call`, so the training parameters
 (the y-point) are never touched. Step times come from CUDA events
 recorded after each step (no host sync; on the CPU, the host clock).
 
+Before anything is built, the trainer runs the kernels' start-up check
+(`utils/kernel_smoke.py`) on its device; a failing kernel raises.
+
 Over a mesh (`parallel/mesh.py`, the JAX trainer's `mesh`) each rank
 trains on its slice of the same global batch order, with the student's
 tensor-parallel shards where the mesh has a model axis; the step's metrics
@@ -35,6 +38,7 @@ from basd_tpu_torch.models.vit import VisionTransformer, ViTConfig
 from basd_tpu_torch.parallel.mesh import main_print
 from basd_tpu_torch.parallel.sharding_rules import gather_state_dict, shard_module
 from basd_tpu_torch.training.train_step import make_train_step
+from basd_tpu_torch.utils.kernel_smoke import validate_kernel_dispatches
 
 
 class _StepClock:
@@ -108,6 +112,17 @@ class Trainer:
         self.student = student
         self.teacher = teacher
         self.device = next(student.parameters()).device
+
+        # the kernels' start-up check (once per process and card; nothing
+        # on the CPU): a kernel that does not build, launch or agree with
+        # its plain version raises here, before the selector and the step
+        t0 = time.perf_counter()
+        self.kernel_check_launches = validate_kernel_dispatches(
+            self.device, verbose=False)
+        self.kernel_check_s = time.perf_counter() - t0
+        if any(self.kernel_check_launches.values()):
+            self._say(f"kernel_check ok on {self.device}: launches "
+                      f"{self.kernel_check_launches} in {self.kernel_check_s:.2f} s")
 
         points = extraction_points(
             student_cfg.depth, config.basd.num_extraction_points

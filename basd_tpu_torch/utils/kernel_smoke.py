@@ -1,0 +1,176 @@
+"""Start-up check of the port's CUDA kernels; the port of
+`basd_tpu/utils/kernel_smoke.py` without its fallback.
+
+Before a long run stages data and steps, `validate_kernel_dispatches`
+runs each kernel once at a tiny real shape on the card and holds its
+result against the kernel's plain torch version on the same inputs:
+attention forward (K1) and backward (K2), the TrivialAugment warp (K4) and
+the Jacobi eigh (K3, its ping-pong route). A kernel that fails to build,
+to launch or to agree raises a `RuntimeError` that names it and carries
+the original error. Nothing is switched: the port has no fallback, so a
+run that cannot use a kernel stops here rather than inside its first step.
+On the CPU the plain versions run, so there is nothing to check.
+
+The checks build their libraries through `kernels.library`, under
+`kernels.build_lock`, so ranks that start together on a cold `_build/`
+compile once. `python -m basd_tpu_torch.tools.smoke_kernels` runs the
+same checks standalone.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from basd_tpu_torch import kernels
+
+# K1/K2 in bf16: max |kernel - plain| / max |plain| (chip_smoke phase 4's
+# bound for the bf16 attention kernels); K3's ping-pong route and K4 round
+# every operation as their plain versions do, so those are held bit for bit
+BF16_ATTENTION_TOL = 2e-2
+
+_VALIDATED: set[str] = set()
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / max(want.float().abs().max().item(), 1e-30)
+
+
+def _within(pairs, what: str) -> str:
+    worst = max(_rel_err(g, w) for g, w in pairs)
+    if not worst <= BF16_ATTENTION_TOL:
+        raise AssertionError(
+            f"{what}: rel err {worst:.3g} against the plain version "
+            f"> {BF16_ATTENTION_TOL}")
+    return f"rel err {worst:.3g} (tol {BF16_ATTENTION_TOL})"
+
+
+def _bit_for_bit(pairs, what: str) -> str:
+    for got, want in pairs:
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            raise AssertionError(
+                f"{what}: max err {err:.3g} against the plain version "
+                "(bit for bit required)")
+    return "bit for bit"
+
+
+def _query(device: torch.device) -> torch.Tensor:
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((4, 33, 64)).astype(np.float32))
+    return q.to(device=device, dtype=torch.bfloat16)
+
+
+def _attention(device: torch.device) -> str:
+    from basd_tpu_torch.ops.attention import attention_forward_plain, fused_attention
+
+    q = _query(device)
+    o = fused_attention(q, q, q, 32)
+    return _within([(o, attention_forward_plain(q, q, q, 32)[0])], "attention")
+
+
+def _attention_bwd(device: torch.device) -> str:
+    """The gradient of sum(o.float() ** 2) with respect to q, k and v; the
+    plain side runs the same chain as the kernels' autograd function."""
+    from basd_tpu_torch.ops.attention import (
+        attention_backward_plain,
+        attention_forward_plain,
+        fused_attention,
+    )
+
+    q = _query(device)
+    leaves = [q.clone().requires_grad_(True) for _ in range(3)]
+    o = fused_attention(*leaves, 32)
+    got = torch.autograd.grad((o.float() ** 2).sum(), leaves)
+    o, m, denom = attention_forward_plain(q, q, q, 32)
+    do = (2.0 * o.float()).to(q.dtype)
+    dd = (do.float() * o.float()).reshape(4, 33, 2, 32).sum(-1)
+    want = attention_backward_plain(q, q, q, do, m, denom, dd, 32)
+    return _within(zip(got, want), "attention_bwd")
+
+
+def _warp(device: torch.device) -> str:
+    from basd_tpu_torch.ops.warp_kernel import (
+        fused_geometric_warp,
+        geometric_warp_plain,
+        warp_params,
+    )
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((4, 32, 32, 3)).astype(np.float32)).to(device)
+    a = torch.tensor([0.0, 0.3, -0.8, 1.6], device=device)
+    z = torch.zeros(4, device=device)
+    got = fused_geometric_warp(x, a, z, z, z, z, None)
+    want = geometric_warp_plain(x, warp_params(a, z, z, z, z, None))
+    return _bit_for_bit([(got, want)], "warp")
+
+
+def _jacobi(device: torch.device) -> str:
+    from basd_tpu_torch.spectral.jacobi import jacobi_eigh
+    from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((6, 32, 32)).astype(np.float32)
+    a = torch.from_numpy(a @ a.transpose(0, 2, 1)).to(device)
+    got = kernel_jacobi_eigh(a, sweeps=4)
+    want = jacobi_eigh(a, sweeps=4)
+    return _bit_for_bit(zip(got, want), "jacobi")
+
+
+# (name, check): each check launches its kernels on `device` and returns
+# what it read, or raises
+KERNEL_CHECKS = (
+    ("attention", _attention),
+    ("attention_bwd", _attention_bwd),
+    ("warp", _warp),
+    ("jacobi", _jacobi),
+)
+
+
+def run_kernel_checks(device) -> dict[str, str | Exception]:
+    """Every check of `KERNEL_CHECKS` on `device`, each run whatever the
+    others did: {name: what it read, or the exception it raised}."""
+    device = torch.device(device)
+    results: dict[str, str | Exception] = {}
+    for name, check in KERNEL_CHECKS:
+        try:
+            results[name] = check(device)
+        except Exception as e:  # noqa: BLE001 -- reported, then raised
+            results[name] = e
+    return results
+
+
+def _key(device: torch.device) -> str:
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return f"{device.type}:{index}"
+
+
+def validate_kernel_dispatches(device, *, verbose: bool = True) -> dict[str, int]:
+    """Run every kernel once on `device` against its plain version, once
+    per process and device; raise a `RuntimeError` naming each kernel that
+    failed, chained to the first failure's own error. Returns the launches
+    that the checks made, by kernel (all zero on the CPU and when this
+    device was already checked)."""
+    device = torch.device(device)
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    if device.type == "cpu":
+        return launches
+    key = _key(device)
+    if key in _VALIDATED:
+        return launches
+    before = dict(kernels.LAUNCHES)
+    results = run_kernel_checks(device)
+    launches = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    failed = {n: r for n, r in results.items() if isinstance(r, Exception)}
+    if verbose:
+        for name, r in results.items():
+            state = f"FAILED ({type(r).__name__}: {r})" if name in failed else f"ok, {r}"
+            print(f"kernel_smoke {name} {state}", flush=True)
+    if failed:
+        raise RuntimeError(
+            f"kernel check on {key} failed: "
+            + "; ".join(f"{n}: {type(e).__name__}: {e}" for n, e in failed.items())
+        ) from next(iter(failed.values()))
+    _VALIDATED.add(key)
+    return launches

@@ -6,7 +6,10 @@
 Phases, in order; any failure raises and the exit code is not 0:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
-     sm_90a, one process per source, all at once); the HMMA (tensor-core)
+     sm_90a, one process per source, all at once); `python -m
+     basd_tpu_torch.tools.smoke_kernels` in a process of its own, exit 0
+     and four PASS lines (K1, K2, K4, K3 once at a tiny shape against their
+     plain versions: the trainer's start-up check); the HMMA (tensor-core)
      instructions in each bf16 attention kernel's and each attention-probe
      kernel's SASS (cuobjdump), none allowed to have none; the instruction
      mix of one rotation step of K3 at n = 48 and of K5 (and of its
@@ -59,6 +62,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      augmented steps each with the exact launches per step, counters reset
      just before and read just after; K3 at Table-2's (4, K, K); the ViT-L
      teacher's intrinsic dimension and the student it derives;
+  5d. the float64 oracle: the selector on the card against
+     `spectral/reference.py:selector_d2_np` on the host, fed the same
+     bf16-rounded operands, on Table-3's real tokens (phase 4's selector
+     inputs, K3 in its eighs), Table-1's real tokens (5c's ViT-L/14 teacher
+     and student, a selector of seed 1, K = 192: cuSOLVER's eighs) and a
+     planted input at Table-1's widths (`planted_selector_inputs`): MP ranks
+     equal (or differing only by eigenvalues at the MP edge), mixing
+     weights and d^2 within the bounds stated at ORACLE_WEIGHTS_ATOL, with
+     the oracle's host seconds; the selector's launches counted;
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
@@ -70,7 +82,8 @@ Phases, in order; any failure raises and the exit code is not 0:
   8. entry points: `basd_tpu_torch.train.main` at Table-3 width (the
      basd_cifar100 experiment on 1,024 synthetic images, one epoch of 8
      steps, bf16, remat, K auto, `latest` every 4 steps) with its exact
-     launches, the restored `latest` against the live state bit for bit,
+     launches (the trainer's kernel start-up check's among them), the
+     restored `latest` against the live state bit for bit,
      and `python -m basd_tpu_torch.evaluate` from the run's snapshot
      reproducing its final eval; the trainer's step times beside the bare
      step's, the eval throughput, each save's blocking time, peak memory;
@@ -86,7 +99,8 @@ Phases, in order; any failure raises and the exit code is not 0:
      each rank's step ms, the ms of each collective and the peak memory;
      9b, `python -m torch.distributed.run --nproc_per_node=4 -m
      basd_tpu_torch.train` on phase 8's run with hardware.mesh.data=4: the
-     same K on every rank, exact launches per rank, every rank's state
+     same K on every rank, exact launches per rank (each rank's start-up
+     check's among them), every rank's state
      bit-identical and equal to `latest` restored in one process, and a
      one-process `evaluate` reproducing the run's final eval (top-1/top-5
      equal, loss within 1e-5); 9c, K1/K2 at the ranks' shapes, in phase 4;
@@ -118,6 +132,11 @@ DATASET_STATS = ((0.507, 0.487, 0.441), (0.267, 0.256, 0.276))
 STEP_HPARAMS = dict(learning_rate=5e-4, weight_decay=0.05, warmup_steps=1000,
                     label_smoothing=0.01)
 MESHES = {"dp4": (4, 1), "tp22": (2, 2)}  # phase 9a's (data, model)
+# the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
+# process that has not checked its card yet: K1 in the attention check and
+# in the backward check's forward, K2, K4, K3
+KERNEL_CHECK_LAUNCHES = {"attention_fwd": 2, "attention_bwd": 1, "jacobi_eigh": 1,
+                         "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0}
 
 
 def table1_inputs(dev):
@@ -236,6 +255,226 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str, k: int) -> None:
     shutdown()
 
 
+# Phase 5d's planted input: teacher layers with these planted ranks, and
+# extraction point p sharing the planted subspace of layer PLANTED_PAIRS[p]
+PLANTED_RANKS = (40, 80, 120, 170)
+PLANTED_PAIRS = (1, 3, 0, 2)
+PLANTED_K = 192
+# Phase 5d's bounds against the float64 oracle: the mixing weights within
+# an absolute bound, each d^2 within d2_atol + d2_rtol |d^2_oracle|. Real
+# tokens: weights 2e-2 (the JAX package's own bound for its selector
+# against the oracle, tests/test_losses.py:262) and d^2 0.15 relative. The
+# K-capped subspace iteration is not the oracle's exact SVD: on random
+# tokens at Table-3's selector widths both packages read 1.9e-3 in the
+# weights and 1.2e-2 in d^2 (tests/test_torch_reference.py), and where a
+# rank cuts a flat spectrum the two pick different directions. The planted
+# input ends every compared subspace at a spectral gap
+# (`planted_selector_inputs`), so only
+# fp32 arithmetic separates the selector from the oracle: up to 8.6e-7 in
+# the weights and 6.8e-6 in d^2 on the CPU (tests/test_torch_reference.py,
+# the same construction at D_s = 48, also with Table-1's token counts, and
+# at Table-1's widths with fewer tokens, held to these bounds), 9.9e-6 and
+# 1.3e-4 on an H100 at Table-1's widths and token counts (cuSOLVER's eighs,
+# fp32 Gram sums over 65,536 tokens). A matched pair's d^2 is 5e-5 there,
+# so d^2 is bounded absolutely: relative to it, the fp32 floor reads O(1).
+ORACLE_WEIGHTS_ATOL = 2e-2
+ORACLE_D2 = (0.0, 0.15)  # (atol, rtol)
+PLANTED_WEIGHTS_ATOL = 1e-4
+PLANTED_D2 = (1e-3, 0.0)
+MP_EDGE_RTOL = 1e-4  # a rank may differ only by eigenvalues this close to the edge
+
+
+def planted_selector_inputs(proj_s, proj_t, teacher_shape, student_shape, seed,
+                            ranks=PLANTED_RANKS, pairs=PLANTED_PAIRS):
+    """bf16 teacher tokens (L, B, N_t, D_t) with a planted rank per layer
+    (`ranks`) and student tokens (P, B, N_s, D_s) whose point p carries the
+    planted subspace of layer `pairs[p]` as the selector sees it; made on
+    the projections' device from `seed`. Each is a signal u h plus noise
+    0.3 (the construction of `tests/test_torch_helpers.py:planted_tokens`,
+    with orthonormal directions h, so that the column scales of u are the
+    signal's spectrum). Layer l's h is a random orthonormal r_l-frame of
+    the selector's space, lifted into the teacher's by proj_t (h proj_t
+    projects back onto h), at scales in [2, 5). Point p's signal has
+    max(ranks) directions: its layer's frame, lifted by proj_s, then
+    directions orthogonal to it, at scales in [2, 5) that fall by tiers:
+    index i of the signal, in tier t = #{r in ranks : r <= i}, has a scale
+    in (5 - (t + 2/3) s, 5 - t s], s = 3 / len(ranks). So every subspace the selector
+    compares (a layer's top r_l, and the point's top r_l for each l) ends
+    at a spectral gap, and the comparison reads the selector's arithmetic,
+    not the conditioning of a cut inside a continuous spectrum or the
+    noise bulk (where the K-capped subspace iteration and the oracle's
+    exact SVD pick different directions: the flat-spectrum reading)."""
+    import torch
+
+    dev = proj_t.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+    (b, n_t, d_t), (b_s, n_s, d_s) = teacher_shape, student_shape
+    frame = lambda x: torch.linalg.qr(x)[0].T  # orthonormal rows spanning x's columns
+
+    def tokens(m, h, scales, lift):
+        x = (randn(m, h.shape[0]) * scales) @ h @ lift
+        return (x + 0.3 * randn(m, lift.shape[1])).to(torch.bfloat16)
+
+    hs = [frame(randn(d_s, r)) for r in ranks]
+    teacher = torch.stack([tokens(b * n_t, h, uniform(h.shape[0], 2.0, 5.0),
+                                  proj_t.float()).reshape(b, n_t, d_t) for h in hs])
+    top, step = max(ranks), 3.0 / len(ranks)
+    tier = torch.tensor([sum(r <= i for r in ranks) for i in range(top)], device=dev)
+    student = []
+    for l in pairs:
+        extra = randn(d_s, top - ranks[l])
+        extra = frame(extra - hs[l].T @ (hs[l] @ extra))
+        scales = 5.0 - step * tier - uniform(top, 0.0, 2.0 * step / 3.0)
+        student.append(tokens(b_s * n_s, torch.cat([hs[l], extra]), scales,
+                              proj_s.float()).reshape(b_s, n_s, d_s))
+    return teacher, torch.stack(student)
+
+
+class HostLayers:
+    """(L, ...) tokens on the card read by the float64 oracle one layer at
+    a time: `layers[l]` is layer l on the host, widened to float64."""
+
+    def __init__(self, tokens):
+        self.tokens = tokens
+
+    def __len__(self) -> int:
+        return self.tokens.shape[0]
+
+    def __getitem__(self, l: int) -> np.ndarray:
+        return self.tokens[l].cpu().double().numpy()
+
+
+def oracle_check(what, selector, student_tokens, teacher_tokens, importance, k,
+                 weights_atol, d2_tol) -> dict:
+    """One `select_and_mix` call on the tokens' device against the float64
+    oracle (`spectral/reference.py:selector_d2_np`, on the host) fed the
+    same bf16-rounded operands: the tokens as stored, proj_t rounded to
+    the teacher tokens' dtype (`losses/selector.py:_project`), proj_s in
+    fp32, the ranks capped at the selector's own k (`select_and_mix`'s
+    min(subspace_k, D_s - 1, B N_s, B N_t)). MP ranks must be equal, unless
+    every eigenvalue between the two ranks lies within MP_EDGE_RTOL of the
+    MP edge (float64 eigenvalues of that layer's projected covariance); the
+    mixing weights within `weights_atol` and each d^2 within atol + rtol
+    |d^2_oracle|, (atol, rtol) = `d2_tol`. Raises AssertionError otherwise;
+    returns the readings."""
+    import torch
+
+    from basd_tpu_torch.losses import select_and_mix
+    from basd_tpu_torch.spectral.reference import selector_d2_np
+
+    _, b, n_s, d_s = student_tokens.shape
+    k = min(k, d_s - 1, b * n_s, b * teacher_tokens.shape[2])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, _, aux = select_and_mix(selector, student_tokens, teacher_tokens, importance,
+                                   subspace_k=k)
+    host = lambda x: x.detach().cpu().double().numpy()
+    ranks = aux["mp_ranks"].cpu().numpy().astype(np.int64)
+    d2, w, temps = (host(aux[n]) for n in ("grassmann_d2", "mixing_weights", "temperatures"))
+    selector_s = time.perf_counter() - t0
+    proj_t = host(selector.proj_t.to(teacher_tokens.dtype))
+    layers = HostLayers(teacher_tokens)
+    t0 = time.perf_counter()
+    d2_ref, ranks_ref = selector_d2_np(host(student_tokens), layers,
+                                       host(selector.proj_s), proj_t, k)
+    host_s = time.perf_counter() - t0
+    logits = -d2_ref / temps[:, None]
+    w_ref = np.exp(logits - logits.max(-1, keepdims=True))
+    w_ref /= w_ref.sum(-1, keepdims=True)
+    margins = {}
+    for l in np.flatnonzero(ranks != ranks_ref):
+        z = layers[int(l)]
+        z = z.reshape(-1, z.shape[-1]) @ proj_t.T
+        m, d = z.shape
+        ev = np.sort(np.linalg.eigvalsh(z.T @ z / m))[::-1]
+        edge = float(np.median(ev)) * (1 + (d / m) ** 0.5) ** 2
+        lo, hi = sorted((int(ranks[l]), int(ranks_ref[l])))
+        margins[int(l)] = float(np.abs(ev[lo:hi] - edge).max() / edge)
+    reading = dict(
+        k=k, ranks=ranks.tolist(), ranks_ref=ranks_ref.tolist(),
+        ranks_equal=bool((ranks == ranks_ref).all()), edge_margins=margins,
+        max_abs_dweights=float(np.abs(w - w_ref).max()),
+        max_rel_dd2=float((np.abs(d2 - d2_ref) / np.abs(d2_ref)).max()),
+        max_abs_dd2=float(np.abs(d2 - d2_ref).max()),
+        d2_range=[float(d2_ref.min()), float(d2_ref.max())],
+        weights_range=[float(w_ref.min()), float(w_ref.max())],
+        weights_atol=weights_atol, d2_tol=d2_tol, selector_s=selector_s,
+        host_s=host_s)
+    d2_atol, d2_rtol = d2_tol
+    ok = (all(v <= MP_EDGE_RTOL for v in margins.values())
+          and reading["max_abs_dweights"] <= weights_atol
+          and bool((np.abs(d2 - d2_ref) <= d2_atol + d2_rtol * np.abs(d2_ref)).all()))
+    edge = f"; edge margins {margins} (tol {MP_EDGE_RTOL})" if margins else ""
+    print(f"oracle {what} (K={k}): MP ranks {ranks.tolist()} vs float64 "
+          f"{ranks_ref.tolist()} (equal: {reading['ranks_equal']}{edge}); max |dweights| "
+          f"{reading['max_abs_dweights']:.3g} (tol {weights_atol}), max relative dd2 "
+          f"{reading['max_rel_dd2']:.3g}, max |dd2| {reading['max_abs_dd2']:.3g} (tol "
+          f"{d2_atol} + {d2_rtol} |d2|); oracle d2 in "
+          f"[{reading['d2_range'][0]:.4g}, {reading['d2_range'][1]:.4g}], weights in "
+          f"[{reading['weights_range'][0]:.4g}, {reading['weights_range'][1]:.4g}]; "
+          f"selector {selector_s:.2f} s, oracle on the host {host_s:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError(f"oracle {what}: {reading}")
+    return reading
+
+
+def oracle_phase(dev, table3: dict, table1: dict) -> dict:
+    """Phase 5d: the selector on the card against the float64 oracle on
+    three inputs. Table-3's real tokens (`table3`: phase 4's selector call,
+    its tokens and K); Table-1's real tokens (the ViT-L/14 teacher's 24
+    layers on the eval view of 5c's images, the 5c student's four points,
+    a fresh selector of seed 1, 5c's K: the selector's eighs at K = 192 go
+    to cuSOLVER); and the planted input at Table-1's widths
+    (`planted_selector_inputs`: teacher (4, 256, 256, 1024), student
+    (4, 256, 196, 384), the token counts the selector gets there, K =
+    PLANTED_K). The launches of the three selector calls are counted."""
+    import torch
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.losses import init_selector
+    from basd_tpu_torch.models import extract_intermediates
+    from basd_tpu_torch.ops.preprocess import eval_view
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    readings = {"table3": oracle_check(
+        "Table-3 real tokens", table3["selector"], table3["student_tokens"],
+        table3["teacher_tokens"], table3["importance"], table3["k"],
+        ORACLE_WEIGHTS_ATOL, ORACLE_D2)}
+
+    size, raw, ims = table1["size"], table1["raw"], table1["images"]
+    with torch.no_grad():
+        t_tok, t_imp = extract_intermediates(
+            table1["teacher"], eval_view(ims, size, size / raw, *TEACHER_STATS))
+        s_tok = table1["state"].student(eval_view(ims, size, size / raw,
+                                                  *DATASET_STATS)).tokens
+    sel = init_selector(1, s_tok.shape[0], s_tok.shape[-1], t_tok.shape[-1], device=dev)
+    readings["table1"] = oracle_check(
+        "Table-1 real tokens", sel, s_tok, t_tok, t_imp, table1["k"],
+        ORACLE_WEIGHTS_ATOL, ORACLE_D2)
+    del t_tok, t_imp, s_tok
+
+    t_tok, s_tok = planted_selector_inputs(
+        sel.proj_s, sel.proj_t, (256, 256, 1024), (256, 196, 384), seed=0)
+    imp = torch.full(t_tok.shape[:3], 1.0 / t_tok.shape[2], device=dev)
+    readings["planted"] = oracle_check(
+        f"Table-1 widths, planted ranks {PLANTED_RANKS}, point p on layer "
+        f"{PLANTED_PAIRS}[p]", sel, s_tok, t_tok, imp, PLANTED_K,
+        PLANTED_WEIGHTS_ATOL, PLANTED_D2)
+    del t_tok, s_tok, imp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    readings["launches"] = dict(kernels.LAUNCHES)
+    readings["phase_s"] = time.perf_counter() - t_start
+    readings["host_s"] = sum(readings[n]["host_s"] for n in ("table3", "table1", "planted"))
+    print(f"oracle: phase {readings['phase_s']:.1f} s, of it the float64 oracle on the "
+          f"host {readings['host_s']:.1f} s; launches {readings['launches']}", flush=True)
+    return readings
+
+
 def free_port() -> int:
     import socket
 
@@ -343,6 +582,22 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
+    # the kernels' start-up check as a user runs it alone: one PASS line per
+    # kernel of the train path (K1, K2, K4, K3 at tiny shapes against their
+    # plain versions) in a process of its own
+    # (the package is found from this script's directory, whatever the cwd)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH"))
+        if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.tools.smoke_kernels"],
+                          capture_output=True, text=True, timeout=300, env=env)
+    passes = [line for line in proc.stdout.splitlines() if line.startswith("PASS ")]
+    if proc.returncode != 0 or len(passes) != 4 or "ALL PASS" not in proc.stdout:
+        raise AssertionError(f"smoke_kernels exited {proc.returncode}:\n{proc.stdout}"
+                             f"\n{proc.stderr[-4000:]}")
+    print(f"smoke_kernels: {time.perf_counter() - t0:.1f} s, {'; '.join(passes)}")
     # the bf16 attention kernels (K1, K2's two launches, one per head_dim of
     # the gate) run on the tensor cores: HMMA instructions in each one's SASS
     hmma, fn = {}, None
@@ -1307,6 +1562,16 @@ def main() -> int:
     path_launches["table1_step"] = table1["launches"]
     path_launches["table2_step"] = table2["launches"]
 
+    # ---- 5d. the selector against the float64 oracle ----
+    # Table-3's real tokens are phase 4's selector inputs; K3 runs in its
+    # three eighs there (K inside the gate), none at Table-1's K
+    oracle = oracle_phase(dev, dict(selector=selector, student_tokens=s_out.tokens,
+                                    teacher_tokens=t_tok, importance=t_imp, k=k_cal),
+                          table1)
+    if oracle["launches"]["jacobi_eigh"] != (3 if k3_on_path else 0):
+        raise AssertionError(f"oracle: launches {oracle['launches']}")
+    path_launches["oracle"] = oracle["launches"]
+
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both
     # sides take one set of augmentation draws, sampled once on the CPU.
@@ -1579,11 +1844,16 @@ def main() -> int:
                                  m7_k, True)
     want = {name: per_step[name] * m7_steps for name in per_step}
     want["attention_fwd"] += m7_student.depth * eval_forwards + teacher_layers(trainer.teacher)
+    # the trainer's kernel start-up check: this process's first Trainer
+    check_launches = trainer.kernel_check_launches
+    want = {name: n + check_launches[name] for name, n in want.items()}
     if (m7_steps != 8 or not m7_student.remat or m7_student.embed_dim != 192
-            or per_step["attention_fwd"] != 36 or m7_launches != want):
+            or per_step["attention_fwd"] != 36 or m7_launches != want
+            or check_launches != KERNEL_CHECK_LAUNCHES):
         raise AssertionError(f"train entry: {m7_steps} steps, remat {m7_student.remat}, "
                              f"launches {m7_launches}, expected {want} (per step "
-                             f"{per_step}, K={m7_k})")
+                             f"{per_step}, K={m7_k}; the start-up check's "
+                             f"{check_launches}, expected {KERNEL_CHECK_LAUNCHES})")
     primary = m7_results["primary"]
     if not all(np.isfinite(primary[key]) for key in ("val_acc", "val_acc_top5", "loss")):
         raise AssertionError(f"train entry: primary {primary}")
@@ -1591,7 +1861,8 @@ def main() -> int:
           f"{use_jacobi((len(trainer.extraction_points), m7_k, m7_k))}); {m7_steps} steps "
           f"of batch {m7_cfg.data.batch_size}, remat {m7_student.remat}; launches "
           f"{m7_launches} (per step {per_step}, plus K1 x {m7_student.depth} in "
-          f"{eval_forwards} eval and efficiency forwards and the calibration's 12); "
+          f"{eval_forwards} eval and efficiency forwards, the calibration's 12 and the "
+          f"kernel start-up check's {check_launches} in {trainer.kernel_check_s:.2f} s); "
           f"{m7_wall_s:.1f} s")
     trainer_ms = trainer.step_ms
     print(f"train entry: trainer step ms {[round(t, 2) for t in trainer_ms]} (CUDA events "
@@ -1648,11 +1919,6 @@ def main() -> int:
     final_npz = f"{out_root}/{m7_cfg.run.name}/checkpoints/final_model.npz"
     eval_argv = [f"config={snapshot}", f"checkpoint.path={final_npz}"]
     t0 = time.perf_counter()
-    # the package is found from this script's directory, whatever the cwd
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH"))
-        if p)
     proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.evaluate", *eval_argv],
                           capture_output=True, text=True, timeout=600, env=env)
     eval_s = time.perf_counter() - t0
@@ -1694,7 +1960,7 @@ def main() -> int:
           float(np.median(step_ms[1:])), "save_blocked_ms": trainer.checkpoints.blocked_ms,
           "eval_img_per_s": m7_results["efficiency"]["throughput_img_per_sec"],
           "peak_gib": m7_peak_gib, "held_gib": held_gib, "wall_s": m7_wall_s,
-          "primary": primary}
+          "primary": primary, "kernel_check_s": trainer.kernel_check_s}
 
     # ---- 9. data and tensor parallelism, the ranks sharing this card ----
     # NCCL refuses two ranks on one card, so the ranks talk over gloo (the
@@ -1842,13 +2108,15 @@ def main() -> int:
                                   k9, True)
     eval_fwd = 2 * m7_student.depth  # the epoch's and the suite's eval, one slice each
     for row in summaries:
-        want = {n: v * 8 for n, v in per_step9.items()}
+        # each rank's first Trainer runs the kernel start-up check
+        want = {n: v * 8 + KERNEL_CHECK_LAUNCHES[n] for n, v in per_step9.items()}
         want["attention_fwd"] += eval_fwd
         if row["rank"] == 0:  # the efficiency forwards and the K calibration
             want["attention_fwd"] += m7_student.depth * (
                 eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches) \
                 + teacher_layers(trainer.teacher)
         if (row["subspace_k"] != k9 or row["steps"] != 8 or row["launches"] != want
+                or row["kernel_check_launches"] != KERNEL_CHECK_LAUNCHES
                 or row["state_digest"] != summaries[0]["state_digest"]
                 or row["backend"] != backend):
             raise AssertionError(f"torchrun rank {row['rank']}: {row}; expected K {k9}, "
@@ -1902,7 +2170,9 @@ def main() -> int:
     for row in summaries:
         print(f"  rank {row['rank']}: trainer step ms "
               f"{[round(t, 2) for t in row['step_ms']]}, median after the first "
-              f"{np.median(row['step_ms'][1:]):.2f}; peak {row['peak_gib']:.2f} GiB")
+              f"{np.median(row['step_ms'][1:]):.2f}; peak {row['peak_gib']:.2f} GiB; "
+              f"kernel start-up check {row['kernel_check_s']:.2f} s, launches "
+              f"{row['kernel_check_launches']}")
     path_launches["mesh_dp4_rank0"] = mesh_report["dp4"]["launches"]
     path_launches["mesh_tp22_rank0"] = mesh_report["tp22"]["launches"]
     path_launches["torchrun_train_rank0"] = summaries[0]["launches"]
@@ -1913,7 +2183,8 @@ def main() -> int:
     shutil.rmtree(m8_big)
     m8 = {"reference": dict(loss=ref["loss"], step_ms=ref_ms, peak_gib=ref_peak),
           "meshes": mesh_report, "ranks_s": mesh_s, "torchrun_s": torchrun_s,
-          "torchrun_ranks": [{k: r[k] for k in ("rank", "step_ms", "peak_gib")}
+          "torchrun_ranks": [{k: r[k] for k in ("rank", "step_ms", "peak_gib",
+                                                "kernel_check_s")}
                              for r in summaries],
           "primary_4_ranks": dp_primary, "primary_one_process": one_primary}
 
@@ -1972,7 +2243,7 @@ def main() -> int:
                          (("table1", table1), ("table2", table2))
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
-                      "m7": m7, "m8": m8,
+                      "m7": m7, "m8": m8, "oracle": oracle,
                       "jacobi_eigh_us_per_step_by_n": us_by_n}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
