@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -15,3 +17,18 @@ def resolve_device(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain torch path"
         )
     return dev
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them, so a
+    time stands beside the card that gave it; "cpu" on the CPU."""
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    )
+    return out.stdout.strip()

@@ -1,7 +1,12 @@
-"""The port's spectral and attention tuning tools (counterparts of the
-JAX package's `tools/tune_spectral.py`, `tools/probe_jacobi_sweeps.py` and
-`tools/probe_attn_internals.py`), and its kernel start-up check standalone
-(`smoke_kernels`, the counterpart of `tools/smoke_kernels.py`). Run each as
-`python -m basd_tpu_torch.tools.<name>`; each tuning tool's `main(...)`
-takes `device=` (the CUDA card by default) and its sizes as keyword
-arguments, `smoke_kernels.main` its command line."""
+"""The port's tools, counterparts of the JAX package's `tools/*.py`: the
+spectral and attention tuners (`tune_spectral`, `probe_jacobi_sweeps`,
+`probe_attn_internals`), the train step's stage profiler (`profile_step`),
+the attribution probes (`probe_selector_internals`, `probe_loss_tail`,
+`probe_step_gap`, `probe_teacher_block`, `probe_student_bwd`,
+`probe_dualview`, `probe_ns_precision`), the kernels' start-up check
+standalone (`smoke_kernels`) and the kernels' A/B timers (`time_jacobi`,
+`time_warp`, `time_attn_probe`). Run each as `python -m
+basd_tpu_torch.tools.<name>`; each runs on the CUDA card unless its `main`
+is given `device="cpu"`, and takes its sizes as keyword arguments (the
+tuners) or its JAX tool's command line and keyword sizes (the profiler and
+the probes)."""

@@ -27,6 +27,15 @@ def device_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2):
     return start.elapsed_time(end) / reps
 
 
+def stage_ms(fn, device: torch.device, reps: int, warmup: int = 3):
+    """`device_ms` of a tool's stage on the card; on the CPU, where no time
+    is measured, one call (so the stage still runs) and None."""
+    if device.type != "cuda":
+        fn()
+        return None
+    return device_ms(fn, device, reps, warmup)
+
+
 def device_events(prof):
     """The device kernels of a torch.profiler run, by name. User annotations
     (ranges such as the optimizer's step) also carry device time and are

@@ -104,6 +104,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      bit-identical and equal to `latest` restored in one process, and a
      one-process `evaluate` reproducing the run's final eval (top-1/top-5
      equal, loss within 1e-5); 9c, K1/K2 at the ranks' shapes, in phase 4;
+  10. measurement entry points: `python -m basd_tpu_torch.bench` in
+     processes of its own for the default arm (Table-3), `--imagenet
+     --teacher dinov2_vitl14` (Table-1) and `--cross-arch` (Table-2), at
+     full width with the bench's own step counts: exit 0, a finite loss,
+     0 < mfu_vs_bf16_peak <= 1.05 and the launches of a timed step equal to
+     phase 5's and 5c's exact counts, printed beside this run's step
+     medians; then `tools.profile_step` (Table-3 and `--imagenet`),
+     `probe_selector_internals` (`--t3`, and `--teacher dinov2_vitl14
+     --model-tokens`: the selector's components at K = 192 on cuSOLVER, on
+     the models' own tokens), `probe_loss_tail` and
+     `probe_step_gap`, each with the counters reset just before and read
+     just after, with the phase's seconds;
 then a JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}} last.
 """
@@ -132,6 +144,13 @@ DATASET_STATS = ((0.507, 0.487, 0.441), (0.267, 0.256, 0.276))
 STEP_HPARAMS = dict(learning_rate=5e-4, weight_decay=0.05, warmup_steps=1000,
                     label_smoothing=0.01)
 MESHES = {"dp4": (4, 1), "tp22": (2, 2)}  # phase 9a's (data, model)
+# phase 10's tool runs: timed calls per stage (--n), lowered from the tools'
+# defaults to keep the whole run in its time (widths unchanged); the
+# step-gap probe keeps its slope of 20 steps (a 4-step slope read a negative
+# Procrustes delta on the host-bound step)
+MEASURE_ARGS = {"profile_step": ["--n", "10"], "profile_step_imagenet": ["--n", "4"],
+                "probe_selector_internals": ["--n", "4"], "probe_loss_tail": ["--n", "4"],
+                "probe_step_gap": []}
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
 # in the backward check's forward, K2, K4, K3
@@ -483,15 +502,6 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def main() -> int:
     import torch
 
@@ -503,6 +513,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
     from basd_tpu_torch.losses import (
         calibrate_subspace_k,
         extraction_points,
@@ -570,7 +581,7 @@ def main() -> int:
         return diff, diff / max(want.float().abs().max().item(), 1e-30)
 
     # ---- 1. device ----
-    card = card_line()
+    card = card_line(dev)
     print(f"device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---- 2. build ----
@@ -2188,6 +2199,77 @@ def main() -> int:
                              for r in summaries],
           "primary_4_ranks": dp_primary, "primary_one_process": one_primary}
 
+    # ---- 10. the measurement entry points ----
+    # `python -m basd_tpu_torch.bench` in processes of its own, at full width
+    # and with its own step counts, for the arms of phases 5 and 5c: the
+    # default (Table-3), `--imagenet --teacher dinov2_vitl14` (Table-1) and
+    # `--cross-arch` (Table-2); each exits 0 with its JSON line last, a
+    # finite loss, 0 < MFU <= 1.05 and the launches of one timed step equal
+    # to the same arm's exact count. Then the stage profiler and three
+    # probes in this process at full width, each with the counters reset
+    # just before and read just after (`tool_path`), their timed calls per
+    # stage lowered to MEASURE_ARGS' to keep the run in its time.
+    from basd_tpu_torch.tools import probe_loss_tail, probe_selector_internals, probe_step_gap
+    from basd_tpu_torch.tools import profile_step as profile_step_tool
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    bench_arms = {"Table-3": ([], table3, step_ms),
+                  "Table-1": (["--imagenet", "--teacher", "dinov2_vitl14"],
+                              table1["per_step"], table1["step_ms"]),
+                  "Table-2": (["--cross-arch"], table2["per_step"], table2["step_ms"])}
+    benches = {}
+    for label, (argv, per_step, arm_ms) in bench_arms.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.bench", *argv],
+                              capture_output=True, text=True, timeout=600, env=env)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"bench {label} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        out = json.loads(lines[-1])
+        d = out["detail"]
+        if not (np.isfinite(d["loss"]) and 0 < d["mfu_vs_bf16_peak"] <= 1.05
+                and d["kernel_fallbacks"] == []):
+            raise AssertionError(f"bench {label}: {lines[-1]}")
+        if d["launches"] != per_step:
+            raise AssertionError(f"bench {label}: launches per step {d['launches']}, "
+                                 f"expected {per_step}")
+        benches[label] = dict(out, wall_s=time.perf_counter() - t0,
+                              chip_smoke_median_ms=float(np.median(arm_ms[1:])))
+        print(f"bench {label}: {lines[-1]}")
+        print(f"bench {label}: {benches[label]['wall_s']:.1f} s; step {d['step_time_ms']} ms "
+              f"(slope), {out['value']} images/s, mfu_vs_bf16_peak "
+              f"{d['mfu_vs_bf16_peak']:.6f}; launches per step {d['launches']} (exact); "
+              f"this run's phase 5/5c step median {benches[label]['chip_smoke_median_ms']:.2f} ms")
+
+    measured_tools = {}
+    for name, module, argv, needs in (
+            ("profile_step", profile_step_tool, MEASURE_ARGS["profile_step"],
+             ("attention_fwd", "attention_bwd", "jacobi_eigh", "warp")),
+            ("profile_step_imagenet", profile_step_tool,
+             ["--imagenet", *MEASURE_ARGS["profile_step_imagenet"]],
+             ("attention_fwd", "attention_bwd", "jacobi_eigh", "warp")),
+            ("probe_selector_internals_t3", probe_selector_internals,
+             ["--t3", *MEASURE_ARGS["probe_selector_internals"]], ("jacobi_eigh",)),
+            ("probe_selector_internals_vitl14", probe_selector_internals,
+             ["--teacher", "dinov2_vitl14", "--model-tokens",
+              *MEASURE_ARGS["probe_selector_internals"]], ()),
+            ("probe_loss_tail", probe_loss_tail, MEASURE_ARGS["probe_loss_tail"], ()),
+            ("probe_step_gap", probe_step_gap, MEASURE_ARGS["probe_step_gap"],
+             ("attention_fwd", "attention_bwd", "warp"))):
+        measured_tools[name], path_launches[name] = tool_path(
+            name, lambda: module.main(argv, device=dev), needs)
+        torch.cuda.empty_cache()
+    sel_l = measured_tools["probe_selector_internals_vitl14"]
+    print(f"selector at K = 192 on the models' tokens (ViT-L/14, Table-1): select {sel_l['select']:.3f} ms; "
+          f"topk_t {sel_l['topk_t']:.3f}, topk_s {sel_l['topk_s']:.3f}, angles "
+          f"{sel_l['angles']:.3f}, angles_g {sel_l['angles_g']:.3f}, ranks "
+          f"{sel_l['ranks']:.3f}, proj_t {sel_l['proj_t']:.3f} ms; eigh routes "
+          f"{ {k: r for k, (_, r) in sel_l['routes'].items()} }")
+    measure_s = time.perf_counter() - t_phase
+    print(f"measurement entry points: phase {measure_s:.1f} s")
+
     # ---- result lines ----
     meta = {
         "attention_fwd": ("basd_tpu_torch/csrc/attention.cu",
@@ -2243,9 +2325,10 @@ def main() -> int:
                          (("table1", table1), ("table2", table2))
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
-                      "m7": m7, "m8": m8, "oracle": oracle,
+                      "m7": m7, "m8": m8, "oracle": oracle, "bench": benches,
+                      "measure_tools": measured_tools, "measure_s": measure_s,
                       "jacobi_eigh_us_per_step_by_n": us_by_n}))
-    print(card_line())
+    print(card_line(dev))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
