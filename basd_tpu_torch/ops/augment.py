@@ -115,7 +115,7 @@ def random_resized_crop(
     crop fits in the image, else the largest in-ratio centre crop."""
     b, h, w = images.shape[:3]
     target_area = (h * w) * draws.area_frac
-    aspect = torch.exp(draws.log_ratio)
+    aspect = warp_kernel.rounded_once(torch.exp, draws.log_ratio)
     cw = torch.sqrt(target_area * aspect)
     ch = torch.sqrt(target_area / aspect)
     valid = (cw <= w) & (ch <= h)  # (B, attempts)
@@ -266,7 +266,8 @@ def _affine_warp(images: torch.Tensor, mats: torch.Tensor) -> torch.Tensor:
 def _inverse_affine(angle, shear_x, shear_y, trans_x, trans_y) -> torch.Tensor:
     """(B, 2, 3) inverse maps (out -> in, acting on (y, x, 1)) of
     rotate + shear + translate."""
-    cos, sin = torch.cos(angle), torch.sin(angle)
+    cos = warp_kernel.rounded_once(torch.cos, angle)
+    sin = warp_kernel.rounded_once(torch.sin, angle)
     a11 = cos - sin * shear_y
     a12 = cos * shear_x - sin
     a21 = sin + cos * shear_y

@@ -72,6 +72,15 @@ def _levels(max_shift: int) -> tuple[int, int, int]:
     return stride, kmax, fine
 
 
+def rounded_once(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn (a torch transcendental) of fp32 `x` in float64, rounded once to
+    fp32: the correctly rounded value but for rare double-rounding ties,
+    the same bits from every host's libm and from the card. fp32
+    `torch.tan`/`torch.sin` differ between hosts by an ulp at some
+    TrivialAugment angles."""
+    return fn(x.to(torch.float64)).to(torch.float32)
+
+
 def warp_params(
     angle: torch.Tensor,
     shear_x: torch.Tensor,
@@ -90,16 +99,18 @@ def warp_params(
     package: at +-135 degrees it sits on the 1.5 tie, and a multiply by a
     rounded reciprocal (what CUDA does for a division by a host scalar)
     can land one ulp off it and pick the other quarter-turn. So pi / 2 is a
-    tensor on the angle's device."""
+    tensor on the angle's device. tan and sin are taken in float64 and
+    rounded once (`rounded_once`), so the rows do not depend on the host:
+    one ulp of the shear factor moves a pixel by up to n/2 ulps."""
     b = angle.shape[0]
     half_pi = torch.full((), math.pi / 2.0, dtype=torch.float32, device=angle.device)
     quarter = torch.round(angle / half_pi)  # half to even, as jnp.round
     kq = torch.remainder(quarter.to(torch.int32), 4).to(torch.float32)
     residual = angle - quarter * half_pi
-    paeth = -torch.tan(residual / 2.0)
+    paeth = -rounded_once(torch.tan, residual / 2.0)
     zeros = torch.zeros_like(angle)
     fl = zeros if flip is None else flip.reshape(b).to(torch.float32)
-    return torch.stack([paeth + shear_x, torch.sin(residual) + shear_y, paeth,
+    return torch.stack([paeth + shear_x, rounded_once(torch.sin, residual) + shear_y, paeth,
                         trans_x, trans_y, kq, fl, zeros], dim=-1)
 
 

@@ -1,6 +1,6 @@
-"""Device timing of the tools: CUDA events around repeated calls, the
-calls' device time with the host kept ahead of the card, and the device
-kernels of a torch.profiler run."""
+"""Device timing of the tools: CUDA events around repeated calls, the JAX
+tools' slope on the host's clock, the calls' device time with the host kept
+ahead of the card, and the device kernels of a torch.profiler run."""
 
 from __future__ import annotations
 
@@ -25,6 +25,28 @@ def device_ms(fn, device: torch.device, reps: int = 10, warmup: int = 2):
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def slope_ms(fn, device: torch.device, n1: int, n2: int, warmup: int = 3):
+    """ms per call of `fn()` by the JAX tools' slope: (t(n2) - t(n1)) /
+    (n2 - n1) on the host's clock over runs of n1 and n2 calls, each ending
+    in the host reading the last result's sum, after a run of `warmup`.
+    None on the CPU."""
+    if device.type != "cuda":
+        return None
+
+    def run(iters):
+        t0 = time.perf_counter()
+        r = None
+        for _ in range(iters):
+            r = fn()
+        float(r.sum())
+        return time.perf_counter() - t0
+
+    run(warmup)
+    t1 = run(n1)
+    t2 = run(n2)
+    return (t2 - t1) / (n2 - n1) * 1e3
 
 
 def stage_ms(fn, device: torch.device, reps: int, warmup: int = 3):

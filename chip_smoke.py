@@ -36,7 +36,9 @@ Phases, in order; any failure raises and the exit code is not 0:
      printed with its route;
      K4 bit for bit at the main path's (128, 32, 32, 3), the reference
      default's (256, 224, 224, 3) (both also by device time alone) and at
-     each route's edges, each case printed with its route;
+     each route's edges, each case printed with its route, its params
+     (`warp_params`) equal to the CPU's in all eight columns, as they are
+     at TrivialAugment's 62 rotate angles;
      K5 on the spectral tuner's own (12, 192, 192) token covariances and
      at an odd n (191), both also by device time alone, and at the
      smallest and largest n of each route (4, 192, 238);
@@ -116,6 +118,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      the models' own tokens), `probe_loss_tail` and
      `probe_step_gap`, each with the counters reset just before and read
      just after, with the phase's seconds;
+  11. the last tools and the entry check: `probe_ns_mixed` (the Newton-
+     Schulz square root by per-step precision), `probe_warp_kernel` (K4
+     against the tap sweep at (256, 224, 224, 3): parity within 1e-5) and
+     `probe_warp_parity8` (card against CPU: every difference 0.0) at full
+     size, each in a process of its own with its launches; `entry()`'s
+     forward on the card (K1 12 launches, logits and tokens against the
+     CPU's within 8 bf16 ulps of their scale) and `dryrun_multichip(4)` on
+     2 x 2 ranks sharing the card over gloo (rank 0's loss within 1e-3 of
+     the one-process step on the same batch, its launches that step's),
+     with the phase's seconds;
 then a JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}} last.
 """
@@ -151,6 +163,9 @@ MESHES = {"dp4": (4, 1), "tp22": (2, 2)}  # phase 9a's (data, model)
 MEASURE_ARGS = {"profile_step": ["--n", "10"], "profile_step_imagenet": ["--n", "4"],
                 "probe_selector_internals": ["--n", "4"], "probe_loss_tail": ["--n", "4"],
                 "probe_step_gap": []}
+# phase 11's bound on the entry forward, card against cpu: both bf16 (2^-8
+# relative spacing), rounded in other places over twelve blocks
+BF16_ULPS_8 = 8 * 2.0**-8
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
 # in the backward check's forward, K2, K4, K3
@@ -1044,17 +1059,34 @@ def main() -> int:
     # fractional translation and identity, each with and without the hflip:
     # every route rounds as the plain version's torch ops, so every row is
     # bit-identical to it, and identity parameters give the input. The
-    # quarter-turn picked on the card must be the CPU's (the +-135 degree
-    # tie of angle / (pi/2)). Each case prints its route (`warp_route`).
+    # card's params must be the CPU's in all eight columns, bit for bit: the
+    # quarter-turn (the +-135 degree tie of angle / (pi/2)) and the shear
+    # factors, whose tan and sin are taken in float64 and rounded once so
+    # that no host's libm or the card's fp32 tanf/sinf enters. Each case
+    # prints its route (`warp_route`).
     warp_ops = time_warp.edge_ops()
+
+    def same_params(what, vals, flip):
+        p_cpu = wk.warp_params(*vals, flip)
+        params = wk.warp_params(*(v.to(dev) for v in vals), flip.to(dev))
+        if not torch.equal(params.cpu(), p_cpu):
+            rows, cols = torch.nonzero(params.cpu() != p_cpu, as_tuple=True)
+            raise AssertionError(f"warp params {what}: card and cpu differ at (row, "
+                                 f"column) {list(zip(rows.tolist(), cols.tolist()))}")
+        return params
+
+    # TrivialAugment's 62 rotate angles, +-m * 135 / 30 degrees, half flipped
+    mags = torch.arange(31, dtype=f32) / 30.0
+    ta_angle = torch.cat([mags, -mags]) * 135.0 * (np.pi / 180.0)
+    z62 = torch.zeros_like(ta_angle)
+    same_params("at TrivialAugment's 62 rotate angles", (ta_angle, z62, z62, z62, z62),
+                torch.arange(62) % 2 == 1)
+    print("warp params: card equals cpu bit for bit in all 8 columns at TrivialAugment's "
+          "62 rotate angles")
 
     def warp_check(b, n, c, ops):
         vals, flip = time_warp.edge_mix(b, ops)
-        p_cpu = wk.warp_params(*vals, flip)
-        params = wk.warp_params(*(v.to(dev) for v in vals), flip.to(dev))
-        if not torch.equal(params[:, 5].cpu(), p_cpu[:, 5]):
-            raise AssertionError(f"warp quarter-turns: card {params[:, 5].tolist()} "
-                                 f"cpu {p_cpu[:, 5].tolist()}")
+        params = same_params(f"edge_mix {(b, n, n, c)}", vals, flip)
         x = torch.rand((b, n, n, c), device=dev, generator=gen)
         got = wk._warp_cuda(x, params)
         want = wk.geometric_warp_plain(x, params)
@@ -1070,7 +1102,8 @@ def main() -> int:
                 f"required), identity exact {torch.equal(ident, x)}")
         bnd, by = bound(2 * x.numel() * 4, 9 * x.numel(), f32)
         print(f"kernel warp {(b, n, n, c)} route {route}: bit-identical to the plain "
-              f"version ({b} rows, {turns} exact quarter-turns) and identity exact")
+              f"version ({b} rows, {turns} exact quarter-turns), identity exact, params "
+              "equal to the cpu's")
         return x, params, dict(max_abs_err=err, route=route, bound_ms=bnd, bound_by=by,
                                library_ms=None)
 
@@ -2270,6 +2303,103 @@ def main() -> int:
     measure_s = time.perf_counter() - t_phase
     print(f"measurement entry points: phase {measure_s:.1f} s")
 
+    # ---- 11. the last tools and the entry check ----
+    # probe_ns_mixed, probe_warp_kernel and probe_warp_parity8 at full size,
+    # each in a process of its own that runs the tool's `main` as `python -m`
+    # does and reads the kernels' counts just after; then
+    # `entry()`'s forward on the card (its launches counted; its logits and
+    # tokens against the same forward on the CPU within BF16_ULPS_8 of each
+    # output's scale, on the entry's zero batch and a seeded one), and
+    # `dryrun_multichip(4)`: 4 ranks sharing the card over gloo on a 2 x 2
+    # mesh, rank 0's loss and the sketches of its gradient and update
+    # against `dryrun_step` in this process on the same global batch
+    # (`entry.DRYRUN_BOUNDS`) and its launches equal to that step's.
+    from basd_tpu_torch import entry as entry_mod
+
+    t_phase = time.perf_counter()
+    runner = ("import json; from basd_tpu_torch import kernels; "
+              "from basd_tpu_torch.tools import {name} as tool; kernels.reset_launches(); "
+              "r = tool.main(); print('tool_result ' + json.dumps("
+              "dict(result=r, launches=dict(kernels.LAUNCHES))), flush=True)")
+    last_tools = {}
+    for name, needs in (("probe_ns_mixed", ()), ("probe_warp_kernel", ("warp",)),
+                        ("probe_warp_parity8", ("warp",))):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", runner.format(name=name)],
+                              capture_output=True, text=True, timeout=600, env=env)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or not lines[-1].startswith("tool_result "):
+            raise AssertionError(f"{name} exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        out = json.loads(lines[-1][len("tool_result "):])
+        for line in lines[:-1]:
+            print(f"{name}: {line}")
+        counts = out["launches"]
+        for kname in needs:
+            if counts[kname] == 0:
+                raise AssertionError(f"{name}: no {kname} launch in {counts}")
+        path_launches[name] = counts
+        last_tools[name] = dict(out["result"], wall_s=time.perf_counter() - t0)
+        print(f"path {name}: launches {counts}; {last_tools[name]['wall_s']:.1f} s")
+    ns = last_tools["probe_ns_mixed"]["all-fp32 (shipping)"]
+    if not ns["relerr_max"] < 1e-3:
+        raise AssertionError(f"probe_ns_mixed: the shipping fp32 schedule {ns}")
+    wp = last_tools["probe_warp_kernel"]
+    if not (wp["parity_max_err"] <= 1e-5 and wp["fused_ms"] > 0 and wp["tap_sweep_ms"] > 0):
+        raise AssertionError(f"probe_warp_kernel: {wp}")
+
+    t0 = time.perf_counter()
+    forward, (e_params, e_images) = entry_mod.entry()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    e_out = forward(e_params, e_images)
+    torch.cuda.synchronize()
+    path_launches["entry_forward"] = dict(kernels.LAUNCHES)
+    if path_launches["entry_forward"] != {**dict.fromkeys(kernels.LAUNCHES, 0),
+                                          "attention_fwd": 12}:
+        raise AssertionError(f"entry forward launches {path_launches['entry_forward']}, "
+                             "expected K1 once per block (12)")
+    cpu_forward, _ = entry_mod.entry(device="cpu")
+    cpu_params = {k: v.cpu() for k, v in e_params.items()}
+    seeded = torch.rand(e_images.shape, device=dev, generator=gen)
+    entry_err = {}
+    for label, images in (("zeros", e_images), ("seeded", seeded)):
+        got = e_out if label == "zeros" else forward(e_params, images)
+        want = cpu_forward(cpu_params, images.cpu())
+        for what, g, w in zip(("logits", "tokens"), got, want):
+            err = (g.float().cpu() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            entry_err[f"{label} {what}"] = err / scale
+            if not err <= BF16_ULPS_8 * scale:
+                raise AssertionError(f"entry forward {label} {what}: card vs cpu {err} "
+                                     f"> {BF16_ULPS_8} * {scale}")
+    entry_s = time.perf_counter() - t0
+    print(f"entry: forward {tuple(tuple(o.shape) for o in e_out)} on the card, launches "
+          f"{path_launches['entry_forward']}; card vs cpu relative to scale {entry_err}; "
+          f"{entry_s:.1f} s")
+
+    one = entry_mod.dryrun_step(4, None, dev)
+    path_launches["dryrun_one_process"] = one["launches"]
+    t0 = time.perf_counter()
+    dryrun = entry_mod.dryrun_multichip(4)
+    dryrun_s = time.perf_counter() - t0
+    path_launches["dryrun_rank0"] = dryrun["launches"]
+    dryrun_dist = entry_mod.dryrun_distances(dryrun, one)
+    if not (dryrun["mesh"] == [2, 2] and np.isfinite(dryrun["loss"])
+            and all(dryrun_dist[k] <= b for k, b in entry_mod.DRYRUN_BOUNDS.items())
+            and dryrun["launches"] == one["launches"]
+            and all(one["launches"][k] > 0 for k in ("attention_fwd", "attention_bwd", "warp"))):
+        raise AssertionError(f"dryrun_multichip(4): loss {dryrun['loss']}, launches "
+                             f"{dryrun['launches']}; one process: loss {one['loss']}, launches "
+                             f"{one['launches']}; distances {dryrun_dist} against bounds "
+                             f"{entry_mod.DRYRUN_BOUNDS}")
+    print(f"dryrun: 2 x 2 ranks over {dryrun['backend']}, loss {dryrun['loss']:.6f} against "
+          f"one process {one['loss']:.6f}; mesh against one process (bounds "
+          f"{entry_mod.DRYRUN_BOUNDS}): {dryrun_dist}; rank 0's launches {dryrun['launches']} "
+          f"(the one-process step's); {dryrun_s:.1f} s")
+    last_s = time.perf_counter() - t_phase
+    print(f"last tools and entry check: phase {last_s:.1f} s")
+
     # ---- result lines ----
     meta = {
         "attention_fwd": ("basd_tpu_torch/csrc/attention.cu",
@@ -2327,6 +2457,12 @@ def main() -> int:
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "m7": m7, "m8": m8, "oracle": oracle, "bench": benches,
                       "measure_tools": measured_tools, "measure_s": measure_s,
+                      "last_tools": last_tools, "entry_rel_err": entry_err,
+                      "entry_s": entry_s,
+                      "dryrun": {**{k: v for k, v in dryrun.items() if k not in ("grad", "update")},
+                                 "one_process_loss": one["loss"], "distances": dryrun_dist,
+                                 "wall_s": dryrun_s},
+                      "last_s": last_s,
                       "jacobi_eigh_us_per_step_by_n": us_by_n}))
     print(card_line(dev))
     print(json.dumps({"ok": True, "device": {

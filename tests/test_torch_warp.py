@@ -137,6 +137,94 @@ def test_quarter_selection_matches_jax():
     assert rows[30, 5].item() == 2.0 and rows[61, 5].item() == 2.0
 
 
+def _trivialaugment_angles():
+    """TrivialAugment's 62 rotate angles, +-m * 135 / 30 degrees, in fp32
+    with the JAX package's op order."""
+    mags = np.arange(31, dtype=np.float32) / np.float32(30.0)
+    sm = np.concatenate([mags, -mags])
+    return ((sm * np.float32(135.0)) * np.float32(math.pi / 180.0)).astype(np.float32)
+
+
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32))
+
+
+@pytest.mark.parametrize("angles", ["trivialaugment", "seeded"])
+def test_rotation_terms_are_rounded_once_from_float64(angles):
+    """Columns 0-2 (paeth + shear_x, sin(residual) + shear_y, paeth) are
+    tan and sin of the fp32 residual in float64, rounded once: bit for bit
+    numpy's float64-then-fp32, so they do not depend on the host's libm.
+    Against the JAX package's fp32 `-jnp.tan(residual / 2)` and
+    `jnp.sin(residual)` they are within 1 ulp everywhere; on
+    TrivialAugment's angles tan is equal at all 62, sin at all but +-63 and
+    +-81 degrees, where XLA's fp32 sin is not correctly rounded."""
+    if angles == "trivialaugment":
+        angle = _trivialaugment_angles()
+    else:
+        angle = np.random.default_rng(0).uniform(-math.pi, math.pi, 4000).astype(np.float32)
+    ja = jnp.asarray(angle)
+    quarter = jnp.round(ja / (jnp.pi / 2.0))
+    residual = ja - quarter * (jnp.pi / 2.0)
+    jtan = np.asarray(-jnp.tan(residual / 2.0))
+    jsin = np.asarray(jnp.sin(residual))
+    res = np.asarray(residual)
+    z = torch.zeros(len(angle))
+    rows = twarp.warp_params(torch.from_numpy(angle), z, z, z, z).numpy()
+    want_tan = (-np.tan((res / np.float32(2.0)).astype(np.float64))).astype(np.float32)
+    want_sin = np.sin(res.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(rows[:, 2], want_tan)
+    np.testing.assert_array_equal(rows[:, 0], want_tan)
+    np.testing.assert_array_equal(rows[:, 1], want_sin)
+    assert _ulps(rows[:, 2], jtan).max() <= 1 and _ulps(rows[:, 1], jsin).max() <= 1
+    if angles == "trivialaugment":
+        np.testing.assert_array_equal(rows[:, 2], jtan)
+        off = np.round(np.rad2deg(angle[_ulps(rows[:, 1], jsin) > 0]), 3)
+        assert sorted(off) == [-81.0, -63.0, 63.0, 81.0]
+
+
+def test_host_libm_does_not_enter_the_params(monkeypatch):
+    """fp32 `torch.tan` and `torch.sin` made one ulp off (as another host's
+    libm may round) leave the params unchanged: only float64 tan and sin
+    reach them. The same stand-ins do move a direct fp32 call."""
+    angle = torch.from_numpy(_trivialaugment_angles())
+    z = torch.zeros(len(angle))
+    want = twarp.warp_params(angle, z + 0.1, z - 0.2, z, z)
+    for name in ("tan", "sin"):
+        real = getattr(torch, name)
+
+        def off_by_one(x, real=real):
+            y = real(x)
+            return y if x.dtype == torch.float64 else torch.nextafter(
+                y, torch.full_like(y, math.inf))
+
+        monkeypatch.setattr(torch, name, off_by_one)
+        assert not torch.equal(off_by_one(angle), real(angle))
+    got = twarp.warp_params(angle, z + 0.1, z - 0.2, z, z)
+    assert torch.equal(got, want)
+
+
+def test_host_libm_does_not_enter_the_affine_maps_or_the_crop(monkeypatch):
+    """The augment path's other transcendentals, the non-square branch's
+    cos and sin (`_inverse_affine`) and the crop's aspect ratio exp
+    (`random_resized_crop`), are rounded once from float64 too: fp32 stand-ins
+    one ulp off change neither."""
+    angle = torch.from_numpy(_trivialaugment_angles())
+    z = torch.zeros(len(angle))
+    crop = taug.CropDraws(*(torch.from_numpy(np.random.default_rng(s).random(
+        (8, 10)).astype(np.float32)) for s in range(4)))
+    crop = crop._replace(log_ratio=(crop.log_ratio - 0.5) * 0.6)
+    images = torch.from_numpy(_images(8, 40, 1))
+    want = (taug._inverse_affine(angle, z + 0.1, z, z + 2.0, z),
+            taug.random_resized_crop(images, crop, 32))
+    for name in ("cos", "sin", "exp"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda x, real=real: real(x) if x.dtype ==
+                            torch.float64 else torch.nextafter(real(x), torch.full_like(x, 9.0)))
+    got = (taug._inverse_affine(angle, z + 0.1, z, z + 2.0, z),
+           taug.random_resized_crop(images, crop, 32))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_pass_bounds_and_levels_match_jax():
     for n in (16, 32, 33, 96, 224):
         assert twarp.pass_bounds(n) == jwarp.pass_bounds(n)
