@@ -5,8 +5,10 @@ the port of the JAX package's `bench.py`.
 
 Prints ONE JSON line, the JAX bench's (`bench.py:320-360`): {"metric",
 "value" (images/s on the card), "unit", "vs_baseline": null, "detail"},
-where `detail` adds the kernels' launches per timed step (`launches`) and
-the card's name and power limit (`device`) to the JAX bench's keys.
+where `detail` adds the kernels' launches per timed step (`launches`), the
+step's route (`step_route`: "graph" where it is one CUDA graph replayed,
+else "eager") and the card's name and power limit (`device`) to the JAX
+bench's keys.
 
 The arms are the JAX bench's (`bench.py:147-201`): by default the
 reference's Table-3 step (DeiT-Tiny/4 student at 32 px, DINOv2 ViT-B/14
@@ -219,7 +221,8 @@ def _run(args: argparse.Namespace, device) -> dict:
     launches = {name: count // n2 if count % n2 == 0 else count / n2
                 for name, count in kernels.LAUNCHES.items()}
     step_time = (t2 - t1) / (n2 - n1)
-    flops = step_cost_analysis(step_fn, state, images, labels)["flops"]
+    # the eager step: a graph replay is no torch op the count could read
+    flops = step_cost_analysis(step_fn.eager, state, images, labels)["flops"]
     mfu = flops / step_time / H100_BF16_PEAK_FLOPS
 
     result = {
@@ -252,6 +255,8 @@ def _run(args: argparse.Namespace, device) -> dict:
             # before this line; nothing falls back
             "kernel_fallbacks": [],
             "launches": launches,
+            # "graph" where the step is one CUDA graph (training.train_step.step_route)
+            "step_route": step_fn.route,
             "device": card_line(dev),
         },
     }

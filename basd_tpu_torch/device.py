@@ -1,10 +1,33 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the step's device
+constants."""
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
 import torch
+
+# every device constant made so far, by (builder, its arguments)
+CONSTANTS: dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(build):
+    """Decorate `build(*args)`, whose last argument is a torch.device, to
+    make its tensor once per arguments and return that same tensor on every
+    later call (callers only read it). The copy from the host happens at
+    the first call, so a train step that has run once copies nothing more:
+    a CUDA graph cannot capture a copy from pageable host memory."""
+
+    @functools.wraps(build)
+    def cached(*args):
+        key = (build.__name__, *args)
+        tensor = CONSTANTS.get(key)
+        if tensor is None:
+            tensor = CONSTANTS[key] = build(*args)
+        return tensor
+
+    return cached
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,6 +1,8 @@
 """Parameter-free token-grid alignment as a precomputed matrix
 (`basd_tpu/losses/interpolate.py`): torch's half-pixel linear rule
-(`F.interpolate(mode="linear", align_corners=False)`) as one matmul."""
+(`F.interpolate(mode="linear", align_corners=False)`) as one matmul. The
+matrix is a device constant, copied to its device once per shape, so a
+train step copies nothing from the host."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from basd_tpu_torch.device import device_constant
 
 
 @lru_cache(maxsize=None)
@@ -30,7 +34,9 @@ def linear_interp_matrix(n_out: int, n_in: int) -> np.ndarray:
     return w
 
 
-def interp_matrix(n_out: int, n_in: int, device) -> torch.Tensor:
+@device_constant
+def interp_matrix(n_out: int, n_in: int, device: torch.device) -> torch.Tensor:
+    """`linear_interp_matrix` on `device`."""
     return torch.from_numpy(linear_interp_matrix(n_out, n_in)).to(device)
 
 

@@ -109,6 +109,22 @@ def calibrate_subspace_k(
     return k
 
 
+def selector_k(subspace_k: int | None, student_dim: int, rows_s: int,
+               rows_t: int) -> int:
+    """The selector's subspace size K: `subspace_k` (96 when None) capped at
+    D_s - 1 and at each side's token rows (batch x tokens)."""
+    if subspace_k is None:
+        subspace_k = min(_DEFAULT_SUBSPACE_K, student_dim - 1)
+    return min(subspace_k, student_dim - 1, rows_s, rows_t)
+
+
+def selector_eigh_shapes(num_points: int, teacher_layers: int, k: int) -> tuple:
+    """The shapes of the selector's three eighs at subspace size `k`: the
+    teacher's and the student's Rayleigh-Ritz (L | P, K, K) and the
+    principal angles' Gram (P, L, K, K)."""
+    return ((teacher_layers, k, k), (num_points, k, k), (num_points, teacher_layers, k, k))
+
+
 def _global_moments(z: torch.Tensor, mesh) -> tuple[torch.Tensor, torch.Tensor]:
     """(Gram z^T z, token sum) of (L, M, D) tokens, each summed over the
     data group in one all-reduce."""
@@ -133,10 +149,8 @@ def select_and_mix(
     (every rank's slice the same size) and the statistics global."""
     p, b, n_s, d_s = student_tokens.shape
     l, _, n_t, d_t = teacher_tokens.shape
-    if subspace_k is None:
-        subspace_k = min(_DEFAULT_SUBSPACE_K, d_s - 1)
     b_total = b if mesh is None else b * mesh.data
-    k = min(subspace_k, d_s - 1, b_total * n_s, b_total * n_t)
+    k = selector_k(subspace_k, d_s, b_total * n_s, b_total * n_t)
 
     proj_t = state.proj_t.detach()
     proj_s = state.proj_s.detach()

@@ -21,12 +21,20 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from basd_tpu_torch.device import device_constant
 from basd_tpu_torch.ops import warp_kernel
 
 
+@device_constant
+def _channel_constant(values: tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """Per-channel statistics as fp32 on `device`."""
+    return torch.as_tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize(images: torch.Tensor, mean, std) -> torch.Tensor:
-    mean = torch.as_tensor(mean, dtype=torch.float32, device=images.device)
-    std = torch.as_tensor(std, dtype=torch.float32, device=images.device)
+    as_key = lambda v: tuple(float(x) for x in v)
+    mean = _channel_constant(as_key(mean), images.device)
+    std = _channel_constant(as_key(std), images.device)
     return (images - mean) / std
 
 

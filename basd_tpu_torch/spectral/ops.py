@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from basd_tpu_torch.device import device_constant
 from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
 from basd_tpu_torch.spectral.tridiag import mp_rank_sturm
 
@@ -378,6 +379,15 @@ def _polar_orthonormalize(v: torch.Tensor, iters: int = 14) -> torch.Tensor:
     return x
 
 
+@device_constant
+def _start_block(d: int, k: int, device: torch.device) -> torch.Tensor:
+    """The subspace iteration's fixed (d, k) start on `device`."""
+    v0 = np.asarray(
+        np.random.default_rng(20_240_601).standard_normal((d, k)), np.float32
+    )
+    return torch.from_numpy(v0).to(device)
+
+
 def topk_basis_gram(
     g: torch.Tensor, k: int, *, g_iters: int = 6, polar_iters: int = 14
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -386,10 +396,7 @@ def topk_basis_gram(
     from a fixed numpy start, then one K x K Rayleigh-Ritz eigh.
     Differentiable end to end."""
     d = g.shape[-1]
-    v0 = np.asarray(
-        np.random.default_rng(20_240_601).standard_normal((d, k)), np.float32
-    )
-    v = torch.from_numpy(v0).to(g.device).expand(*g.shape[:-2], d, k)
+    v = _start_block(d, k, g.device).expand(*g.shape[:-2], d, k)
     gnorm = torch.sqrt(torch.sum(g * g, dim=(-2, -1), keepdim=True))
     gn = g / torch.clamp(gnorm, min=_TINY)
     for _ in range(g_iters):

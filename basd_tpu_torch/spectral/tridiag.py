@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from basd_tpu_torch.device import device_constant
+
 _F32 = torch.float32
 
 
@@ -71,6 +73,12 @@ def sturm_count(
     return count
 
 
+@device_constant
+def _order_constant(ks: tuple[int, int], device: torch.device) -> torch.Tensor:
+    """The order statistics `ks` as int32 on `device`."""
+    return torch.tensor(ks, dtype=torch.int32, device=device)
+
+
 def _kth_pair_bracket(
     diag: torch.Tensor,  # (B, n)
     off2: torch.Tensor,  # (B, n-1)
@@ -91,7 +99,7 @@ def _kth_pair_bracket(
     lo = lo - 0.01 * span - 1e-30
     hi = hi + 0.01 * span + 1e-30
 
-    k_arr = torch.tensor(ks, dtype=torch.int32, device=diag.device)
+    k_arr = _order_constant(tuple(ks), diag.device)
     lo = lo[:, None].expand(b, 2)
     hi = hi[:, None].expand(b, 2)
     grid = (torch.arange(num_shifts, dtype=_F32, device=diag.device) + 1.0) / (

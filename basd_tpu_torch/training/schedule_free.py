@@ -14,6 +14,15 @@ evaluation point x = (y - (1 - beta1) z) / beta1. Per step t:
 
 Weight decay applies to every parameter, as in the JAX package. A
 parameter without a gradient takes a zero gradient.
+
+A step has a host half and a device half. `advance` does the bookkeeping
+(`step` and `weight_sum` in `param_groups`, so the state dict is the same)
+and works out c_t, gamma_t and gamma_t (beta1 (1 - c_t) - 1) in float64,
+then fills each into a 0-d fp32 tensor on the parameters' device. `update`
+reads those tensors and nothing else that changes from step to step, so a
+CUDA graph that captured it replays each step's values; a fp32 tensor
+times a 0-d fp32 tensor rounds as times the Python scalar did. `step` is
+`advance` then `update`.
 """
 
 from __future__ import annotations
@@ -46,12 +55,26 @@ class ScheduleFreeAdamW(torch.optim.Optimizer):
                 self.state[p]["exp_avg_sq"] = torch.zeros_like(
                     p, dtype=torch.float32
                 )
+        # the per-step coefficients of each group, filled by `advance`
+        self._coefficients = [
+            {name: torch.zeros((), dtype=torch.float32,
+                               device=group["params"][0].device)
+             for name in ("ckp1", "gamma", "y_u")}
+            for group in self.param_groups
+        ]
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("ScheduleFreeAdamW takes no closure")
-        for group in self.param_groups:
+        self.advance()
+        self.update()
+        return None
+
+    def advance(self) -> None:
+        """The step's host half: the bookkeeping, and the coefficients filled
+        into their device tensors (on the current stream)."""
+        for group, coef in zip(self.param_groups, self._coefficients):
             group["step"] += 1
             t = group["step"]
             warm = group["warmup_steps"]
@@ -62,7 +85,16 @@ class ScheduleFreeAdamW(torch.optim.Optimizer):
             group["weight_sum"] += weight
             ws = group["weight_sum"]
             ckp1 = weight / ws if ws > 0 else 0.0
-            wd = group["weight_decay"]
+            coef["ckp1"].fill_(ckp1)
+            coef["gamma"].fill_(gamma)
+            coef["y_u"].fill_(gamma * (beta1 * (1.0 - ckp1) - 1.0))
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The step's device half, from the coefficients `advance` filled."""
+        for group, coef in zip(self.param_groups, self._coefficients):
+            beta2, wd = group["beta2"], group["weight_decay"]
+            ckp1, gamma, y_u = coef["ckp1"], coef["gamma"], coef["y_u"]
             for p in group["params"]:
                 st = self.state[p]
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -73,10 +105,9 @@ class ScheduleFreeAdamW(torch.optim.Optimizer):
                 u = g / (v.sqrt() + group["eps"])
                 if wd:
                     u = u + wd * y
-                y_new = y + ckp1 * (z - y) + gamma * (beta1 * (1.0 - ckp1) - 1.0) * u
+                y_new = y + ckp1 * (z - y) + y_u * u
                 z.sub_(gamma * u)
                 p.copy_(y_new.to(p.dtype))
-        return None
 
     @torch.no_grad()
     def eval_params(self) -> list[torch.Tensor]:

@@ -4,9 +4,17 @@ One step: both views from one uint8 batch (RandomResizedCrop, hflip,
 TrivialAugmentWide and MixUp/CutMix on the student's view), the frozen
 teacher's intermediates, the student forward with capture, `basd_loss`
 (selector, Procrustes per extraction point, CE + UW-SO), backward, and the
-ScheduleFree update of the student and the selector temperatures. PyTorch
-runs eagerly, so the step mutates its state in place. Every augmentation
-draw comes from the state's generator, on the step's device.
+ScheduleFree update of the student and the selector temperatures. The
+step mutates its state in place. Every augmentation draw comes from the
+state's generator, on the step's device.
+
+The JAX package compiles the step into one XLA program. Its counterpart
+here is one CUDA graph, captured once and replayed (`TrainStep`), on the
+route `step_route` gives: a CUDA device, no mesh, no remat, and every eigh
+of the selector on the Jacobi kernel (cuSOLVER's eigh, which the others
+take, reads its status back to the host, and a graph cannot hold that).
+Everywhere else the step runs eagerly, op by op, with the same kernels
+and the same bits.
 
 Over a (data, model) mesh (`parallel/mesh.py`) the step computes the
 one-process step on the global batch: every rank draws for the global
@@ -19,6 +27,7 @@ all-reduce before the update.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -26,8 +35,13 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from basd_tpu_torch import kernels
 from basd_tpu_torch.losses import basd_loss
-from basd_tpu_torch.losses.selector import SelectorState
+from basd_tpu_torch.losses.selector import (
+    SelectorState,
+    selector_eigh_shapes,
+    selector_k,
+)
 from basd_tpu_torch.models.teacher import Teacher, extract_intermediates
 from basd_tpu_torch.models.vit import VisionTransformer
 from basd_tpu_torch.ops.mixup import (
@@ -43,6 +57,7 @@ from basd_tpu_torch.ops.preprocess import (
     sample_view_draws,
 )
 from basd_tpu_torch.parallel.mesh import all_reduce_grads, data_all_reduce
+from basd_tpu_torch.spectral.ops import use_jacobi
 from basd_tpu_torch.training.schedule_free import ScheduleFreeAdamW
 
 
@@ -100,6 +115,146 @@ def shard_step_draws(draws: StepDraws, lo: int, size: int) -> StepDraws:
         draws.mix)
 
 
+def step_route(
+    device,
+    *,
+    num_points: int,
+    teacher_layers: int,
+    student_dim: int,
+    student_tokens: int,
+    teacher_tokens: int,
+    batch: int,
+    subspace_k: int | None = None,
+    mesh=None,
+    remat: bool = False,
+) -> tuple[str, str]:
+    """("graph" | "eager", reason): how a step of this configuration runs.
+    "graph" needs a CUDA device, no mesh (its collectives are host calls
+    between the stages), no remat (`torch.utils.checkpoint`), and every
+    eigh the selector takes inside the Jacobi kernel's gate
+    (`spectral.ops.use_jacobi`): the (L, K, K), (P, K, K) and (P, L, K, K)
+    eighs at the selector's K for this batch. Outside the gate the eigh is
+    cuSOLVER's, which synchronizes with the host. Token counts exclude the
+    CLS token; `teacher_layers` is 1 for a CNN teacher."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "eager", f"{dev.type}: the plain versions, op by op"
+    if mesh is not None:
+        return "eager", "a mesh: the collectives are host calls between the stages"
+    if remat:
+        return "eager", "remat: torch.utils.checkpoint recomputes each block in the backward"
+    if student_dim < 8:
+        return "eager", (f"D_s = {student_dim} < 8: the MP rank takes torch.linalg."
+                         "eigvalsh (cuSOLVER), which synchronizes with the host")
+    k = selector_k(subspace_k, student_dim, batch * student_tokens,
+                   batch * teacher_tokens)
+    shapes = selector_eigh_shapes(num_points, teacher_layers, k)
+    for shape in shapes:
+        if not use_jacobi(shape):
+            return "eager", (f"eigh {shape} is outside the Jacobi gate (16 <= n <= 96, "
+                             "batch >= 4): torch.linalg.eigh (cuSOLVER), which "
+                             "synchronizes with the host")
+    return "graph", f"one CUDA graph: no mesh, no remat, the eighs {shapes} on K3"
+
+
+class TrainStep:
+    """The step that `make_train_step` returns: `step(state, images_u8,
+    labels) -> (state, metrics)`.
+
+    Its first call takes the route from `step_route` (the configuration
+    and that call's batch), prints it and keeps it in `route` and `reason`.
+    On "eager" every call is `eager`: the optimizer's host half
+    (`ScheduleFreeAdamW.advance`), `body`, and `state.step += 1`. On
+    "graph" the first call is `eager` on a side stream: the warm-up, which
+    builds the kernels, the library handles and the step's device
+    constants. The second call captures `body` on that stream into a
+    private memory pool as one CUDA graph, with `state.generator`
+    registered, so that each replay makes new draws. Capture runs nothing,
+    so that call and every later one copies the batch into the graph's
+    input buffers, runs the optimizer's host half, replays the graph,
+    advances `state.step` and returns clones of the graph's metrics. The
+    graph launches the eager step's kernels on the same buffers in the same
+    order, so it gives the eager step's bits. Nothing falls back to eager: a
+    failed capture or replay raises, and so does a batch of another shape,
+    dtype or device, or another state, after the capture.
+
+    `kernels.LAUNCHES` keeps its meaning: the capture pass counts its
+    launches (`launches`, one replay's) and takes them back out, and each
+    replay adds them. `capture_s` is the capture's host seconds,
+    `pool_bytes` the memory its pool reserved."""
+
+    def __init__(self, body, route_for):
+        self.body = body
+        self._route_for = route_for
+        self.route = self.reason = None
+        self.graph = None
+        self.launches = None
+        self.capture_s = self.pool_bytes = None
+        self._stream = self._state = self._inputs = self._outputs = None
+
+    def eager(self, state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor):
+        """One step op by op, on the current stream (either route)."""
+        state.optimizer.advance()
+        metrics = self.body(state, images_u8, labels)
+        state.step += 1
+        return state, metrics
+
+    def __call__(self, state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor):
+        if self.route is None:
+            self.route, self.reason = self._route_for(images_u8.shape[0])
+            print(f"train_step route={self.route}: {self.reason}", flush=True)
+            if self.route == "graph":
+                return self._warm_up(state, images_u8, labels)
+        if self.route == "eager":
+            return self.eager(state, images_u8, labels)
+        return self._replay(state, images_u8, labels)
+
+    def _warm_up(self, state, images_u8, labels):
+        dev = images_u8.device
+        self._stream = torch.cuda.Stream(dev)
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            out = self.eager(state, images_u8, labels)
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        self._state = state
+        self._inputs = (torch.empty_like(images_u8), torch.empty_like(labels))
+        return out
+
+    def _replay(self, state, images_u8, labels):
+        if state is not self._state:
+            raise ValueError("this step's CUDA graph was captured for another TrainState")
+        for x, buf in zip((images_u8, labels), self._inputs):
+            if (x.shape, x.dtype, x.device) != (buf.shape, buf.dtype, buf.device):
+                raise ValueError(
+                    f"this step's CUDA graph takes {tuple(buf.shape)} {buf.dtype} on "
+                    f"{buf.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+        self._inputs[0].copy_(images_u8)
+        self._inputs[1].copy_(labels)
+        state.optimizer.advance()
+        if self.graph is None:
+            self._capture(state)
+        self.graph.replay()
+        for name, count in self.launches.items():
+            kernels.LAUNCHES[name] += count
+        state.step += 1
+        return state, {k: v.clone() for k, v in self._outputs.items()}
+
+    def _capture(self, state):
+        dev = self._inputs[0].device
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream):
+            reserved = torch.cuda.memory_reserved(dev)
+            self._outputs = self.body(state, *self._inputs)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_s = time.perf_counter() - t0
+        self.launches = {name: kernels.LAUNCHES[name] - n for name, n in before.items()}
+        kernels.LAUNCHES.update(before)  # the capture pass launched nothing
+        self.graph = graph
+
+
 def make_train_step(
     student: VisionTransformer,
     teacher: Teacher,
@@ -119,7 +274,10 @@ def make_train_step(
 ):
     """Build (init_fn, step_fn). init_fn(seed, selector) -> TrainState;
     step_fn(state, images_u8 (B, H, W, 3) uint8, labels (B,)) -> (state,
-    metrics), updating `state` in place. `augment=True` is bench.py's
+    metrics), updating `state` in place: a `TrainStep`, one CUDA graph
+    replayed per step where `step_route` allows, else eager. `step_fn.body`
+    is the step without the optimizer's host bookkeeping and the step count;
+    `step_fn.eager` the whole step op by op. `augment=True` is bench.py's
     step: the augmented student view and mixed soft targets, with the draws
     from `sample_step_draws(state.generator, batch)`. `augment=False` is the
     deterministic mode: both views are the eval transform and the targets
@@ -140,7 +298,9 @@ def make_train_step(
             weight_decay=weight_decay, warmup_steps=warmup_steps,
         )
 
-    def step_fn(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor):
+    def body(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor) -> dict:
+        """The step's device work: every operation reads the device, and the
+        optimizer's update reads the coefficients its host half filled."""
         b = images_u8.shape[0]
         # a rank's rows of the global batch: (first row, global batch)
         rows = None if mesh is None else (mesh.data_index * b, mesh.data * b)
@@ -186,8 +346,7 @@ def make_train_step(
             if mesh is not None:
                 all_reduce_grads(state.optimizer.param_groups[0]["params"], mesh)
         with record_function("basd:optimizer"):
-            state.optimizer.step()
-        state.step += 1
+            state.optimizer.update()
 
         # train accuracy against the original labels
         hits = out.logits.argmax(dim=-1) == labels
@@ -205,6 +364,15 @@ def make_train_step(
             "temperatures": aux["temperatures"],
             "mp_ranks": aux["mp_ranks"],
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
 
-    return init_fn, step_fn
+    def route_for(batch: int) -> tuple[str, str]:
+        cfg = student.config
+        return step_route(
+            next(student.parameters()).device, num_points=len(student.capture_layers),
+            teacher_layers=len(teacher.spec.heads_per_layer()),
+            student_dim=cfg.embed_dim, student_tokens=cfg.num_patches,
+            teacher_tokens=teacher.num_tokens, batch=batch, subspace_k=subspace_k,
+            mesh=mesh, remat=cfg.remat)
+
+    return init_fn, TrainStep(body, route_for)

@@ -53,6 +53,8 @@ Phases, in order; any failure raises and the exit code is not 0:
   5. main path: a short `make_train_step(augment=False)` run, then train
      steps of `make_train_step(augment=True)` (bench.py's step), each with
      the kernels' launch counters reset just before and read just after;
+     both are the graph route (the first step eager, then one CUDA graph
+     captured and replayed);
   5b. tools: one full-size run of each tool path
      (`basd_tpu_torch.tools.tune_spectral`, `probe_jacobi_sweeps`,
      `probe_attn_internals`), counters reset just before and read just
@@ -73,14 +75,26 @@ Phases, in order; any failure raises and the exit code is not 0:
      equal (or differing only by eigenvalues at the MP edge), mixing
      weights and d^2 within the bounds stated at ORACLE_WEIGHTS_ATOL, with
      the oracle's host seconds; the selector's launches counted;
+  5e. the Table-3 step as one CUDA graph (`training.train_step.TrainStep`):
+     two states from the same seeds, 6 eager steps of one (the second under
+     `torch.cuda.set_sync_debug_mode("error")`, so a host round-trip
+     raises) and 6 calls of the other's graph route (an eager warm-up, the
+     capture and its replay, 4 replays), bit for bit equal in every loss and
+     metric, the parameters, temperatures, optimizer state and generator
+     state; K1 24, K2 12, K3 3, K4 1 per replay by the counters and by
+     kernel name in a torch.profiler trace of one replay; the eager and
+     replay step medians, the replay's device-busy share, the capture's
+     seconds and the graph pool's bytes; Table-1's and Table-2's routes
+     (eager, with the eigh shape that goes to cuSOLVER);
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
      teacher; a ResNet teacher's forward and a no-CLS ViT's forward and
      backward on both; a remat=True step against remat=False on the card;
-  7. profile: one main-path step and one Table-1 step under
-     torch.profiler, device time by kernel and host time by stage, and K4's
-     device time from phase 4 (profiles have dropped its one launch);
+  7. profile: one main-path step op by op, one replay of its CUDA graph
+     and one Table-1 step under torch.profiler, device time by kernel and
+     host time by stage, and K4's device time from phase 4 (profiles have
+     dropped its one launch);
   8. entry points: `basd_tpu_torch.train.main` at Table-3 width (the
      basd_cifar100 experiment on 1,024 synthetic images, one epoch of 8
      steps, bf16, remat, K auto, `latest` every 4 steps) with its exact
@@ -509,6 +523,215 @@ def oracle_phase(dev, table3: dict, table1: dict) -> dict:
     return readings
 
 
+# phase 5e: the port's own kernels by name in a torch.profiler trace, one
+# pattern per counter (K2 counts its dq launch, one a call; K3 its ping-pong
+# kernel or, above n = 96, its V^T replay, one a call)
+KERNEL_NAMES = {name: r"void \(anonymous namespace\)::" + pattern + r"[<(]" for name, pattern in
+                (("attention_fwd", r"attn_fwd_(mma|kernel)"),
+                 ("attention_bwd", r"attn_(bwd_)?dq_(mma|kernel)"),
+                 ("jacobi_eigh", r"jacobi_(pingpong|vt_replay)_kernel"),
+                 ("warp", r"warp_\w*kernel"))}
+
+
+def stage_table3(dev) -> dict:
+    """Phase 3: Table-3 at full width, as bench.py's default arm stages it
+    (DeiT-Tiny/4 student at 32 px, DINOv2 ViT-B/14 teacher, bf16, random
+    weights from seeds, batch 128 of 40 px images from default_rng(0), the
+    selector of seed 1, K calibrated on the eval view)."""
+    import torch
+
+    from basd_tpu_torch.losses import calibrate_subspace_k, extraction_points, init_selector
+    from basd_tpu_torch.models import create_student, load_teacher
+    from basd_tpu_torch.ops.preprocess import eval_view
+
+    img, batch, num_classes, patch = 32, 128, 100, 4
+    raw = img + 2 * patch
+    teacher = load_teacher("dinov2_vitb14", img_size=img, dtype=torch.bfloat16, device=dev)
+    points = extraction_points(12, 4)
+    student, cfg = create_student(
+        "vit_tiny_patch16", num_classes=num_classes, drop_path_rate=0.05,
+        img_size=img, arch_overrides={"patch_size": patch},
+        capture_layers=points, dtype=torch.bfloat16, remat=False, device=dev,
+    )
+    selector = init_selector(1, len(points), cfg.embed_dim,
+                             teacher.spec.embed_dim, device=dev)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(
+        (rng.random((batch, raw, raw, 3)) * 255).astype(np.uint8)).to(dev)
+    labels = torch.from_numpy(
+        rng.integers(0, num_classes, batch, dtype=np.int64)).to(dev)
+    calib = eval_view(images, img, img / raw, *TEACHER_STATS)
+    k = calibrate_subspace_k(teacher, cfg.embed_dim, calib, seed=0,
+                             num_extraction_points=len(points))
+    return dict(img=img, batch=batch, num_classes=num_classes, patch=patch, raw=raw,
+                teacher=teacher, points=points, student=student, cfg=cfg,
+                selector=selector, images=images, labels=labels, calib=calib, k=k)
+
+
+def graph_phase(dev, t3: dict, per_step: dict, steps: int) -> dict:
+    """Phase 5e: the Table-3 step as one CUDA graph, on phase 3's staging
+    `t3`. Two students, selectors and train states from the same seeds
+    (`make_train_step(augment=True)`, bench.py's step); `steps` eager
+    steps (`step_fn.eager`) of one, the second under
+    `torch.cuda.set_sync_debug_mode("error")` (any host round-trip
+    raises), and `steps` calls of the other's graph route (one
+    eager warm-up, then the capture and its replay, then replays). Every
+    step's loss and metrics, the student's parameters, the temperatures,
+    the optimizer's z and exp_avg_sq and the generator's state must be
+    equal bit for bit; each replay's launches must be `per_step` by the
+    counters and, in a torch.profiler trace of one more replay after the
+    comparison, by kernel name (`KERNEL_NAMES`). Returns the step medians,
+    the replay's device busy share, the capture's seconds and the graph
+    pool's bytes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.losses import init_selector
+    from basd_tpu_torch.models import create_student
+    from basd_tpu_torch.tools.timing import device_events, device_us
+    from basd_tpu_torch.training.train_step import make_train_step
+
+    teacher, images, labels, points = t3["teacher"], t3["images"], t3["labels"], t3["points"]
+    img, raw, num_classes = t3["img"], t3["raw"], t3["num_classes"]
+
+    def stage():
+        stu, cfg = create_student(
+            "vit_tiny_patch16", num_classes=num_classes, drop_path_rate=0.05,
+            img_size=img, arch_overrides={"patch_size": t3["patch"]}, capture_layers=points,
+            dtype=torch.bfloat16, remat=False, device=dev)
+        sel = init_selector(1, len(points), cfg.embed_dim, teacher.spec.embed_dim,
+                            device=dev)
+        init_fn, step_fn = make_train_step(
+            stu, teacher, **STEP_HPARAMS, img_size=img, crop_ratio=img / raw,
+            teacher_stats=TEACHER_STATS, dataset_stats=DATASET_STATS,
+            num_classes=num_classes, subspace_k=t3["k"], augment=True)
+        return step_fn, init_fn(0, sel)
+
+    def run(step, state, sync_checked=()):
+        """`steps` calls of `step`; (metrics on the host, ms, launches) per
+        step, the steps in `sync_checked` under sync debug mode "error"."""
+        out = []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            if i in sync_checked:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, met = step(state, images, labels)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {n: kernels.LAUNCHES[n] - before[n] for n in per_step}
+            out.append(({n: v.cpu() for n, v in met.items()}, ms, counts))
+        return out
+
+    def final_state(state) -> dict:
+        opt = state.optimizer
+        tensors = {f"student {n}": p for n, p in state.student.named_parameters()}
+        tensors["log_temperatures"] = state.selector.log_temperatures
+        for i, p in enumerate(opt.param_groups[0]["params"]):
+            tensors[f"z {i}"] = opt.state[p]["z"]
+            tensors[f"exp_avg_sq {i}"] = opt.state[p]["exp_avg_sq"]
+        tensors["generator"] = state.generator.get_state()
+        return {n: t.detach().cpu() for n, t in tensors.items()}
+
+    t_phase = time.perf_counter()
+    eager_fn, eager_state = stage()
+    eager = run(eager_fn.eager, eager_state, sync_checked=(1,))
+    print(f"graph: eager step 1 of {steps} ran under set_sync_debug_mode('error'): no "
+          "host round-trip", flush=True)
+    graph_fn, graph_state = stage()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    graph = run(graph_fn, graph_state)
+    torch.cuda.synchronize()
+    graph_launches = dict(kernels.LAUNCHES)
+    if graph_fn.route != "graph" or graph_fn.launches != per_step:
+        raise AssertionError(f"graph: route {graph_fn.route} ({graph_fn.reason}), "
+                             f"launches per replay {graph_fn.launches}, expected {per_step}")
+    for i, ((em, _, ec), (gm, _, gc)) in enumerate(zip(eager, graph)):
+        if gc != per_step or ec != per_step:
+            raise AssertionError(f"graph step {i}: launches graph {gc} eager {ec}, "
+                                 f"expected {per_step}")
+        differ = [n for n in em if not torch.equal(em[n], gm[n])]
+        if differ or set(em) != set(gm):
+            raise AssertionError(f"graph step {i}: metrics {differ} differ from the "
+                                 f"eager step's ({em} vs {gm})")
+    ef, gf = final_state(eager_state), final_state(graph_state)
+    differ = [n for n in ef if not torch.equal(ef[n], gf[n])]
+    if differ:
+        raise AssertionError(f"graph: after {steps} steps {len(differ)} of {len(ef)} "
+                             f"tensors differ from the eager run's: {differ[:8]}")
+    eager_ms = float(np.median([ms for _, ms, _ in eager[1:]]))
+    replay_ms = float(np.median([ms for _, ms, _ in graph[2:]]))
+    print(f"graph: {steps} steps bit for bit equal to {steps} eager steps (losses "
+          f"{[float(m['loss']) for m, _, _ in graph]}, every metric, {len(ef) - 1} "
+          "parameter, temperature and optimizer tensors, the generator's state); "
+          f"launches per replay {graph_fn.launches} by the counters", flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph_fn(graph_state, images, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    by_name = {n: sum(e.count for e in events if re.match(pat, e.key))
+               for n, pat in KERNEL_NAMES.items()}
+    if by_name != {n: per_step[n] for n in KERNEL_NAMES}:
+        raise AssertionError(f"graph: kernels by name in a profiled replay {by_name}, "
+                             f"expected {per_step}")
+    readings = dict(
+        eager_step_ms=[ms for _, ms, _ in eager], graph_step_ms=[ms for _, ms, _ in graph],
+        eager_median_ms=eager_ms, replay_median_ms=replay_ms,
+        capture_s=graph_fn.capture_s, pool_bytes=graph_fn.pool_bytes,
+        launches_per_replay=graph_fn.launches, launches_by_name=by_name,
+        profiled_replay_ms=wall_ms, replay_busy_ms=busy_ms,
+        replay_kernels=sum(e.count for e in events),
+        busy_share_profiled=busy_ms / wall_ms, busy_share_median=busy_ms / replay_ms,
+        launches=graph_launches, reason=graph_fn.reason)
+    print(f"graph: Table-3 step median eager {eager_ms:.3f} ms, graph replay "
+          f"{replay_ms:.3f} ms (steps 2..{steps - 1}; eager steps {readings['eager_step_ms']}, "
+          f"graph steps {readings['graph_step_ms']}); capture {graph_fn.capture_s:.3f} s, "
+          f"graph pool {graph_fn.pool_bytes} bytes; a profiled replay: {wall_ms:.3f} ms "
+          f"wall, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of it, "
+          f"{100 * busy_ms / replay_ms:.1f}% of the replay median), "
+          f"{readings['replay_kernels']} device kernels, the port's by name {by_name}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    del eager_fn, eager_state, graph_fn, graph_state
+    torch.cuda.empty_cache()
+    return readings
+
+
+def graph_check() -> int:
+    """Phase 5e alone, about two minutes on one card: the kernels built,
+    Table-3 staged (phase 3), `graph_phase`; its readings as one JSON line,
+    then the card's name and power limit. Run it as
+    `python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.graph_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_all()
+    dev = torch.device("cuda", 0)
+    per_step = {"attention_fwd": 24, "attention_bwd": 12, "jacobi_eigh": 3, "warp": 1,
+                "jacobi_eigvals": 0, "attn_probe": 0}
+    readings = graph_phase(dev, stage_table3(dev), per_step, MAIN_STEPS)
+    print(json.dumps(readings))
+    print(card_line(dev))
+    return 0
+
+
 def free_port() -> int:
     import socket
 
@@ -569,6 +792,7 @@ def main() -> int:
         device_us,
         kernel_ms,
     )
+    from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.spectral.ops import use_jacobi
     from basd_tpu_torch import evaluate as evaluate_entry
     from basd_tpu_torch import train as train_entry
@@ -683,25 +907,11 @@ def main() -> int:
     step_mix("jacobi_packed_kernel<6, 192, log>", "jacobi_packed_kernelILi6ELi192ELb1EE")
 
     # ---- 3. staging: Table-3 at full width (bench.py's default workload) ----
-    img, batch, num_classes, patch = 32, 128, 100, 4
-    raw = img + 2 * patch
-    teacher = load_teacher("dinov2_vitb14", img_size=img, dtype=bf16, device=dev)
-    points = extraction_points(12, 4)
-    student, cfg = create_student(
-        "vit_tiny_patch16", num_classes=num_classes, drop_path_rate=0.05,
-        img_size=img, arch_overrides={"patch_size": patch},
-        capture_layers=points, dtype=bf16, remat=False, device=dev,
-    )
-    selector = init_selector(1, len(points), cfg.embed_dim,
-                             teacher.spec.embed_dim, device=dev)
-    rng = np.random.default_rng(0)
-    images = torch.from_numpy(
-        (rng.random((batch, raw, raw, 3)) * 255).astype(np.uint8)).to(dev)
-    labels = torch.from_numpy(
-        rng.integers(0, num_classes, batch, dtype=np.int64)).to(dev)
-    calib = eval_view(images, img, img / raw, *TEACHER_STATS)
-    k_cal = calibrate_subspace_k(teacher, cfg.embed_dim, calib, seed=0,
-                                 num_extraction_points=len(points))
+    t3 = stage_table3(dev)
+    img, batch, num_classes = t3["img"], t3["batch"], t3["num_classes"]
+    patch, raw, calib = t3["patch"], t3["raw"], t3["calib"]
+    teacher, points, student, cfg = t3["teacher"], t3["points"], t3["student"], t3["cfg"]
+    selector, images, labels, k_cal = t3["selector"], t3["images"], t3["labels"], t3["k"]
     k3_on_path = use_jacobi((len(points), k_cal, k_cal))
     print(f"staging: student D={cfg.embed_dim} heads={cfg.num_heads} "
           f"tokens={cfg.num_patches + 1}; teacher D={teacher.spec.embed_dim} "
@@ -1388,7 +1598,7 @@ def main() -> int:
         l, p = teacher_layers(tch), len(pts)
         return {"attention_fwd": student_blocks * (2 if scfg.remat else 1) + teacher_blocks,
                 "attention_bwd": student_blocks,
-                "jacobi_eigh": sum(use_jacobi(sh) for sh in ((l, k, k), (p, k, k), (p, l, k, k))),
+                "jacobi_eigh": sum(map(use_jacobi, selector_eigh_shapes(p, l, k))),
                 "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0}
 
     def run_steps(label, stu, tch, sel, pts, k, size, raw_size, ims, lbs, ncls, augment,
@@ -1578,6 +1788,7 @@ def main() -> int:
                   f"linalg.eigh {row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
                   f"({row['bound_by']})")
         return dict(teacher=tch, images=ims, labels=lbs, step_fn=fn, state=st,
+                    route=(fn.route, fn.reason),
                     launches=counts, step_ms=ms, k=k, per_step=per_step,
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                     staging_s=dict(teacher=t_teacher, student=t_student,
@@ -1615,6 +1826,19 @@ def main() -> int:
     if oracle["launches"]["jacobi_eigh"] != (3 if k3_on_path else 0):
         raise AssertionError(f"oracle: launches {oracle['launches']}")
     path_launches["oracle"] = oracle["launches"]
+
+    # ---- 5e. the Table-3 step as one CUDA graph ----
+    graph = graph_phase(dev, t3, table3, steps=MAIN_STEPS)
+    path_launches["table3_graph"] = graph["launches"]
+    # Table-1 and Table-2 stay eager: an eigh outside the Jacobi gate is
+    # cuSOLVER's, which synchronizes with the host
+    for label, t in (("Table-1", table1), ("Table-2", table2)):
+        route, reason = t["route"]
+        if route != "eager" or "cuSOLVER" not in reason:
+            raise AssertionError(f"graph: {label} route {route} ({reason})")
+        print(f"graph: {label} route={route}: {reason} (K={t['k']})")
+        graph[f"{label.lower().replace('-', '')}_route"] = t["route"]
+    print(f"graph: {card}")
 
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both
@@ -1835,7 +2059,11 @@ def main() -> int:
               f"{warp_row['device_ms']:.5f} ms per launch by kernel_ms (phase 4); "
               f"{'recorded' if in_profile else 'no record'} in this profile")
 
-    profile_step("Table-3", step_fn, state, images, labels,
+    # the main path's step both ways: op by op (host time by stage), and
+    # the replay of its CUDA graph (phase 5's)
+    profile_step("Table-3 eager", step_fn.eager, state, images, labels,
+                 report["warp"][f"main path {(batch, img, img, 3)}"])
+    profile_step("Table-3 replay", step_fn, state, images, labels,
                  report["warp"][f"main path {(batch, img, img, 3)}"])
     torch.cuda.reset_peak_memory_stats()
     profile_step("Table-1", table1["step_fn"], table1["state"], table1["images"],
@@ -2455,7 +2683,8 @@ def main() -> int:
                          (("table1", table1), ("table2", table2))
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
-                      "m7": m7, "m8": m8, "oracle": oracle, "bench": benches,
+                      "m7": m7, "m8": m8, "oracle": oracle, "graph": graph,
+                      "bench": benches,
                       "measure_tools": measured_tools, "measure_s": measure_s,
                       "last_tools": last_tools, "entry_rel_err": entry_err,
                       "entry_s": entry_s,

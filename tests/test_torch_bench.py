@@ -199,7 +199,7 @@ ARCH_KEYS = ("img_size", "patch_size", "embed_dim", "depth", "num_heads",
 def test_bench_smoke_json_contract():
     """`bench.main(["--smoke"], device="cpu")` in a process of its own:
     one JSON line last, the JAX bench's keys (tests/test_bench_contract.py)
-    and the port's two additions."""
+    and the port's three additions."""
     code = ("from basd_tpu_torch import bench\n"
             "bench.main(['--smoke'], device='cpu')\n")
     env = dict(os.environ, BASD_BENCH_WATCHDOG_S="0")
@@ -219,10 +219,11 @@ def test_bench_smoke_json_contract():
     assert 0 < d["mfu_vs_bf16_peak"] < 1
     assert d["kernel_fallbacks"] == []
     assert d["launches"] == dict.fromkeys(kernels.LAUNCHES, 0)  # the CPU launches none
-    assert d["device"] == "cpu"
+    assert d["device"] == "cpu" and d["step_route"] == "eager"
     assert set(d) == {"step_time_ms", "batch", "chips", "teacher", "student",
                       "student_arch", "raw_input_px", "loss", "smoke",
-                      "mfu_vs_bf16_peak", "kernel_fallbacks", "launches", "device"}
+                      "mfu_vs_bf16_peak", "kernel_fallbacks", "launches",
+                      "step_route", "device"}
 
 
 # bench.py's arms (bench.py:147-201), as --smoke shrinks them: the JAX
