@@ -12,7 +12,9 @@ composed from `experiment=...` and overrides as for training. Runs on the
 CUDA card by default; `main(argv, device="cpu")` on the CPU. Launched by
 torchrun with more than one process, it evaluates over `hardware.mesh` as
 `train` does (each data rank its slices of the batches); in one process
-`hardware.mesh` is ignored.
+`hardware.mesh` is ignored. It prints `eval route=graph|eager: <reason>`
+(`evaluation.metrics.eval_route`): on the card without a mesh each full
+batch and each efficiency forward is a replay of one CUDA graph.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from pathlib import Path
 from basd_tpu_torch.checkpoint import CheckpointManager
 from basd_tpu_torch.config import compose_config, compose_from_snapshot, save_config
 from basd_tpu_torch.device import resolve_device
-from basd_tpu_torch.evaluation.metrics import run_eval_suite, save_metrics
+from basd_tpu_torch.evaluation.metrics import eval_route, run_eval_suite, save_metrics
 from basd_tpu_torch.models import create_student
 from basd_tpu_torch.parallel.mesh import mesh_from_config, shutdown
 from basd_tpu_torch.parallel.sharding_rules import shard_module
@@ -60,6 +62,7 @@ def run(config, *, device=None) -> dict:
     student = shard_module(student, mesh)
     if main_rank:
         print(f"checkpoint_loaded path={ckpt_path} epoch={epoch}")
+        print("eval route={}: {}".format(*eval_route(dev, mesh)), flush=True)
         save_config(config, output_dir / "config.yaml")
 
     results = run_eval_suite(

@@ -9,7 +9,12 @@ channel stats -> `subspace_k: auto` calibration -> trainer -> config
 snapshot -> optional resume -> train -> final eval suite -> metrics.json.
 
 Runs on one CUDA card by default; `main(argv, device="cpu")` runs the
-plain torch path on the CPU. `hardware.precision` picks the compute dtype
+plain torch path on the CPU. The log says which path each part took: the
+step prints `train_step route=graph|eager: <reason>` at its first call
+(one CUDA graph per update on the card, remat included, where
+`training.train_step.step_route` allows), and the run prints `eval
+route=graph|eager: <reason>` (`evaluation.metrics.eval_route`) before it
+trains. `hardware.precision` picks the compute dtype
 and `hardware.remat` recomputes the student's blocks in the backward.
 
 Launched by torchrun with more than one process, the run is data and
@@ -45,7 +50,7 @@ from basd_tpu_torch.data.datasets import (
 )
 from basd_tpu_torch.data.pipeline import to_device
 from basd_tpu_torch.device import resolve_device
-from basd_tpu_torch.evaluation.metrics import run_eval_suite, save_metrics
+from basd_tpu_torch.evaluation.metrics import eval_route, run_eval_suite, save_metrics
 from basd_tpu_torch.losses import calibrate_subspace_k, extraction_points
 from basd_tpu_torch.models import (
     create_student,
@@ -178,6 +183,8 @@ def run(config, *, device=None) -> tuple[dict, Trainer]:
         mesh=mesh,
     )
     del student  # the trainer's (a tensor-parallel twin over a model axis)
+    # the step prints its route at its first call (`train_step route=...`)
+    say("eval route={}: {}".format(*eval_route(dev, mesh)))
 
     if main_rank:
         save_config(config, output_dir / "config.yaml")

@@ -8,11 +8,12 @@ ScheduleFree update of the student and the selector temperatures. The
 step mutates its state in place. Every augmentation draw comes from the
 state's generator, on the step's device.
 
-The JAX package compiles the step into one XLA program. Its counterpart
-here is one CUDA graph, captured once and replayed (`TrainStep`), on the
-route `step_route` gives: a CUDA device, no mesh, no remat, and every eigh
-of the selector on the Jacobi kernel (cuSOLVER's eigh, which the others
-take, reads its status back to the host, and a graph cannot hold that).
+The JAX package compiles the step into one XLA program (remat's
+recomputation inside it). Its counterpart here is one CUDA graph, captured
+once and replayed (`TrainStep`), on the route `step_route` gives: a CUDA
+device, no mesh, and every eigh of the selector on the Jacobi kernel
+(cuSOLVER's eigh, which the others take, reads its status back to the
+host, and a graph cannot hold that), with or without remat.
 Everywhere else the step runs eagerly, op by op, with the same kernels
 and the same bits.
 
@@ -27,7 +28,6 @@ all-reduce before the update.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from basd_tpu_torch import kernels
+from basd_tpu_torch.device import CapturedCall
 from basd_tpu_torch.losses import basd_loss
 from basd_tpu_torch.losses.selector import (
     SelectorState,
@@ -130,19 +130,20 @@ def step_route(
 ) -> tuple[str, str]:
     """("graph" | "eager", reason): how a step of this configuration runs.
     "graph" needs a CUDA device, no mesh (its collectives are host calls
-    between the stages), no remat (`torch.utils.checkpoint`), and every
-    eigh the selector takes inside the Jacobi kernel's gate
+    between the stages), and every eigh the selector takes inside the
+    Jacobi kernel's gate
     (`spectral.ops.use_jacobi`): the (L, K, K), (P, K, K) and (P, L, K, K)
     eighs at the selector's K for this batch. Outside the gate the eigh is
-    cuSOLVER's, which synchronizes with the host. Token counts exclude the
-    CLS token; `teacher_layers` is 1 for a CNN teacher."""
+    cuSOLVER's, which synchronizes with the host. Remat takes either route:
+    `torch.utils.checkpoint` (non-reentrant, no RNG state kept) recomputes
+    each block inside the backward, on the device alone; the reason says so.
+    Token counts exclude the CLS token; `teacher_layers` is 1 for a CNN
+    teacher."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return "eager", f"{dev.type}: the plain versions, op by op"
     if mesh is not None:
         return "eager", "a mesh: the collectives are host calls between the stages"
-    if remat:
-        return "eager", "remat: torch.utils.checkpoint recomputes each block in the backward"
     if student_dim < 8:
         return "eager", (f"D_s = {student_dim} < 8: the MP rank takes torch.linalg."
                          "eigvalsh (cuSOLVER), which synchronizes with the host")
@@ -154,7 +155,9 @@ def step_route(
             return "eager", (f"eigh {shape} is outside the Jacobi gate (16 <= n <= 96, "
                              "batch >= 4): torch.linalg.eigh (cuSOLVER), which "
                              "synchronizes with the host")
-    return "graph", f"one CUDA graph: no mesh, no remat, the eighs {shapes} on K3"
+    recompute = ", remat's recomputation of each student block inside the backward" \
+        if remat else ""
+    return "graph", f"one CUDA graph: no mesh, the eighs {shapes} on K3{recompute}"
 
 
 class TrainStep:
@@ -165,32 +168,47 @@ class TrainStep:
     and that call's batch), prints it and keeps it in `route` and `reason`.
     On "eager" every call is `eager`: the optimizer's host half
     (`ScheduleFreeAdamW.advance`), `body`, and `state.step += 1`. On
-    "graph" the first call is `eager` on a side stream: the warm-up, which
-    builds the kernels, the library handles and the step's device
-    constants. The second call captures `body` on that stream into a
-    private memory pool as one CUDA graph, with `state.generator`
-    registered, so that each replay makes new draws. Capture runs nothing,
-    so that call and every later one copies the batch into the graph's
-    input buffers, runs the optimizer's host half, replays the graph,
-    advances `state.step` and returns clones of the graph's metrics. The
-    graph launches the eager step's kernels on the same buffers in the same
-    order, so it gives the eager step's bits. Nothing falls back to eager: a
-    failed capture or replay raises, and so does a batch of another shape,
-    dtype or device, or another state, after the capture.
+    "graph" every call copies the batch into static input buffers, runs the
+    optimizer's host half, runs `body` on those buffers as a
+    `device.CapturedCall` (call 1 the eager warm-up on a side stream, call
+    2 the capture, with `state.generator` registered, and its replay, later
+    calls replays), advances `state.step` and returns clones of the
+    metrics. Under remat the recomputation of the student's blocks runs
+    inside the backward, so inside the capture. Nothing falls back to
+    eager: a failed capture or replay raises, and so does a batch of
+    another shape, dtype or device, another state, or optimizer slots
+    that were replaced (a restore) after the warm-up.
 
-    `kernels.LAUNCHES` keeps its meaning: the capture pass counts its
-    launches (`launches`, one replay's) and takes them back out, and each
-    replay adds them. `capture_s` is the capture's host seconds,
-    `pool_bytes` the memory its pool reserved."""
+    `forget()` drops the route, the capture and its buffers, so that the
+    next call routes, warms up and captures again: `Trainer.load_checkpoint`
+    calls it, since `optimizer.load_state_dict` replaces the z and
+    exp_avg_sq tensors that the graph writes. `graph`, `launches`,
+    `capture_s` and `pool_bytes` are the `CapturedCall`'s."""
 
     def __init__(self, body, route_for):
         self.body = body
         self._route_for = route_for
+        self.forget()
+
+    def forget(self) -> None:
         self.route = self.reason = None
-        self.graph = None
-        self.launches = None
-        self.capture_s = self.pool_bytes = None
-        self._stream = self._state = self._inputs = self._outputs = None
+        self._call = self._state = self._inputs = self._slots = None
+
+    @property
+    def graph(self):
+        return None if self._call is None else self._call.graph
+
+    @property
+    def launches(self):
+        return None if self._call is None else self._call.launches
+
+    @property
+    def capture_s(self):
+        return None if self._call is None else self._call.capture_s
+
+    @property
+    def pool_bytes(self):
+        return None if self._call is None else self._call.pool_bytes
 
     def eager(self, state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor):
         """One step op by op, on the current stream (either route)."""
@@ -203,24 +221,24 @@ class TrainStep:
         if self.route is None:
             self.route, self.reason = self._route_for(images_u8.shape[0])
             print(f"train_step route={self.route}: {self.reason}", flush=True)
-            if self.route == "graph":
-                return self._warm_up(state, images_u8, labels)
         if self.route == "eager":
             return self.eager(state, images_u8, labels)
-        return self._replay(state, images_u8, labels)
+        if self._state is None:
+            self._state = state
+            self._inputs = (torch.empty_like(images_u8), torch.empty_like(labels))
+            self._slots = _optimizer_slots(state.optimizer)
+            self._call = CapturedCall(lambda: self.body(state, *self._inputs),
+                                      images_u8.device, state.generator)
+        else:
+            self._check(state, images_u8, labels)
+        self._inputs[0].copy_(images_u8)
+        self._inputs[1].copy_(labels)
+        state.optimizer.advance()
+        metrics = self._call()
+        state.step += 1
+        return state, {k: v.clone() for k, v in metrics.items()}
 
-    def _warm_up(self, state, images_u8, labels):
-        dev = images_u8.device
-        self._stream = torch.cuda.Stream(dev)
-        self._stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(self._stream):
-            out = self.eager(state, images_u8, labels)
-        torch.cuda.current_stream(dev).wait_stream(self._stream)
-        self._state = state
-        self._inputs = (torch.empty_like(images_u8), torch.empty_like(labels))
-        return out
-
-    def _replay(self, state, images_u8, labels):
+    def _check(self, state, images_u8, labels) -> None:
         if state is not self._state:
             raise ValueError("this step's CUDA graph was captured for another TrainState")
         for x, buf in zip((images_u8, labels), self._inputs):
@@ -228,31 +246,18 @@ class TrainStep:
                 raise ValueError(
                     f"this step's CUDA graph takes {tuple(buf.shape)} {buf.dtype} on "
                     f"{buf.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
-        self._inputs[0].copy_(images_u8)
-        self._inputs[1].copy_(labels)
-        state.optimizer.advance()
-        if self.graph is None:
-            self._capture(state)
-        self.graph.replay()
-        for name, count in self.launches.items():
-            kernels.LAUNCHES[name] += count
-        state.step += 1
-        return state, {k: v.clone() for k, v in self._outputs.items()}
+        slots = _optimizer_slots(state.optimizer)
+        if len(slots) != len(self._slots) or any(
+                a is not b for a, b in zip(slots, self._slots)):
+            raise ValueError("the optimizer's z or exp_avg_sq tensors were replaced after "
+                             "this step's warm-up (a restore?): call forget() first")
 
-    def _capture(self, state):
-        dev = self._inputs[0].device
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(state.generator)
-        before = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
-            reserved = torch.cuda.memory_reserved(dev)
-            self._outputs = self.body(state, *self._inputs)
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.capture_s = time.perf_counter() - t0
-        self.launches = {name: kernels.LAUNCHES[name] - n for name, n in before.items()}
-        kernels.LAUNCHES.update(before)  # the capture pass launched nothing
-        self.graph = graph
+
+def _optimizer_slots(optimizer: ScheduleFreeAdamW) -> list[torch.Tensor]:
+    """The optimizer's z and exp_avg_sq tensors, in order: what a captured
+    step writes besides the parameters."""
+    return [optimizer.state[p][key] for group in optimizer.param_groups
+            for p in group["params"] for key in ("z", "exp_avg_sq")]
 
 
 def make_train_step(

@@ -1,9 +1,12 @@
 """Epoch loop: shuffled uint8 batches -> the train step -> metrics ->
 best/latest checkpoints; the port of `basd_tpu/training/trainer.py`.
 
-The step mutates its state in place (no jit, no donation). The per-step
-metrics stay on the device and are fetched once per epoch; only the
-mid-epoch save reads values back. Evaluation runs at the ScheduleFree
+The step mutates its state in place (no jit, no donation); on the card it
+is one CUDA graph per update where `train_step.step_route` allows (the
+default configuration, remat on, included), replayed on the current
+stream, so the step clock's events and a save's copies to the host follow
+the replay before them. The per-step metrics stay on the device and are
+fetched once per epoch; only the mid-epoch save reads values back. Evaluation runs at the ScheduleFree
 x-point through `torch.func.functional_call`, so the training parameters
 (the y-point) are never touched. Step times come from CUDA events
 recorded after each step (no host sync; on the CPU, the host clock).
@@ -270,10 +273,14 @@ class Trainer:
     def load_checkpoint(self, checkpoint_path: str) -> int:
         """Restore the full training state; returns the epoch to resume at.
         A step-granular checkpoint (saved mid-epoch by `save_every_steps`)
-        resumes the SAME epoch at the recorded batch offset."""
+        resumes the SAME epoch at the recorded batch offset. The restore
+        replaces the optimizer's z and exp_avg_sq tensors, which a captured
+        step writes, so the step forgets its capture: the next step warms up
+        and captures again."""
         self.state, custom = self.checkpoints.restore_state(
             checkpoint_path, self.state
         )
+        self._step.forget()
         self.best_val_acc = custom["best_val_acc"]
         self.metrics_history = defaultdict(list, custom["metrics_history"])
         if custom.get("step_in_epoch"):

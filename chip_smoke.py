@@ -95,14 +95,20 @@ Phases, in order; any failure raises and the exit code is not 0:
      and one Table-1 step under torch.profiler, device time by kernel and
      host time by stage, and K4's device time from phase 4 (profiles have
      dropped its one launch);
-  8. entry points: `basd_tpu_torch.train.main` at Table-3 width (the
-     basd_cifar100 experiment on 1,024 synthetic images, one epoch of 8
-     steps, bf16, remat, K auto, `latest` every 4 steps) with its exact
-     launches (the trainer's kernel start-up check's among them), the
-     restored `latest` against the live state bit for bit,
-     and `python -m basd_tpu_torch.evaluate` from the run's snapshot
-     reproducing its final eval; the trainer's step times beside the bare
-     step's, the eval throughput, each save's blocking time, peak memory;
+  8. entry points (`trainer_phase`; alone `trainer_graph_check()`):
+     `basd_tpu_torch.train.main` at Table-3 width (the basd_cifar100
+     experiment on 1,024 synthetic images, one epoch of 8 steps, bf16,
+     remat, K auto, `latest` every 4 steps) on the graph route (K1 36, K2
+     12, K3 3, K4 1 a replay) with its exact launches (the trainer's kernel
+     start-up check's among them); a twin Trainer's `TrainStep.eager`
+     steps on the same batches, bit for bit; the restored `latest` against
+     the live state bit for bit; the graph evaluation against the eager
+     one (sums bit for bit, eval and efficiency img/s both ways); `latest`
+     restored into the live Trainer after its capture and 2 steps against
+     a fresh Trainer's; timed and profiled remat replays (busy share,
+     kernels by name); and `python -m basd_tpu_torch.evaluate` from the
+     run's snapshot reproducing its final eval; the trainer's step times
+     beside the bare step's, each save's blocking time, peak memory;
   9. data and tensor parallelism, 4 ranks sharing the card over gloo
      (`parallel/mesh.py`; the backend is printed): 9a, Table-1 at full
      width, one augmented step of a fresh one-process step (run and freed
@@ -533,6 +539,37 @@ KERNEL_NAMES = {name: r"void \(anonymous namespace\)::" + pattern + r"[<(]" for 
                  ("warp", r"warp_\w*kernel"))}
 
 
+def teacher_layers(tch) -> int:
+    """Token layers a teacher gives: every block of a ViT, one for a CNN."""
+    return tch.spec.depth if tch.spec.feature_format == "token" else 1
+
+
+def per_step_launches(scfg, tch, pts, k, augment) -> dict:
+    """Each kernel's launches in one train step of a configuration: K1 in
+    every block, teacher's and student's, of a ViT with a CLS token inside
+    the kernel gate (a student block twice under remat: its forward runs
+    again in the backward), K2 in every such student block, K3 in each of
+    the selector's three eighs (teacher and student Rayleigh-Ritz, the
+    principal angles) that the Jacobi gate takes, K4 once per augmented
+    view."""
+    from basd_tpu_torch.losses.selector import selector_eigh_shapes
+    from basd_tpu_torch.ops import attention as attn
+    from basd_tpu_torch.spectral.ops import use_jacobi
+
+    def fused_blocks(c):
+        ok = c.has_cls_token and attn.supports_fused(
+            c.num_patches + 1, c.embed_dim, c.embed_dim // c.num_heads)
+        return c.depth if ok else 0
+
+    student_blocks = fused_blocks(scfg)
+    teacher_blocks = fused_blocks(tch.module.config) if tch.spec.family == "vit" else 0
+    l, p = teacher_layers(tch), len(pts)
+    return {"attention_fwd": student_blocks * (2 if scfg.remat else 1) + teacher_blocks,
+            "attention_bwd": student_blocks,
+            "jacobi_eigh": sum(map(use_jacobi, selector_eigh_shapes(p, l, k))),
+            "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0}
+
+
 def stage_table3(dev) -> dict:
     """Phase 3: Table-3 at full width, as bench.py's default arm stages it
     (DeiT-Tiny/4 student at 32 px, DINOv2 ViT-B/14 teacher, bf16, random
@@ -732,6 +769,455 @@ def graph_check() -> int:
     return 0
 
 
+M7_OUT = "chiprun_out/m7"
+# phase 8's run: `python -m basd_tpu_torch.train` as a user runs it, at
+# Table-3 width on 1,024 synthetic images, one epoch of 8 steps, `latest`
+# every 4; the arch_overrides keep the student at DeiT-Tiny width (a random
+# teacher's intrinsic dimension would shrink it)
+M7_ARGV = [
+    "experiment=basd_cifar100", "data.dataset=synthetic/cifar100-like-1024n",
+    "training.num_epochs=1",
+    "model.arch_overrides={embed_dim: 192, depth: 12, num_heads: 3, mlp_ratio: 4.0}",
+    "checkpoint.save_every_steps=4", "evaluation.efficiency_warmup=5",
+    "evaluation.efficiency_batches=20", f"run.output_dir={M7_OUT}",
+]
+# phase 8's replays timed alone after the run, and its eval comparison's
+# images (the first 1,000 of the 1,024: 7 full batches and a tail of 104)
+M7_TIMED_REPLAYS = 5
+M7_EVAL_IMAGES = 1000
+
+
+def trainer_phase(dev, env, bare_step_median_ms: float | None) -> dict:
+    """Phase 8: the trainer and evaluation entry points at Table-3 width.
+    `train.main(M7_ARGV)` (basd_cifar100: DeiT-Tiny/4 at 32 px with the
+    DINOv2 ViT-B/14 teacher, random weights from the seed, batch 128, 100
+    classes, bf16, remat, K auto) on the graph route: its exact launches,
+    one replay's K1 36, K2 12, K3 3, K4 1; (a) a twin Trainer from the same
+    seed and config driven through `TrainStep.eager` on the same 8 batches
+    (its second step under `torch.cuda.set_sync_debug_mode("error")`), bit
+    for bit in every metric of every step, every parameter, z, v, the
+    log-temperatures, the generator and the step; `latest` restored into a
+    fresh Trainer equals the live state bit for bit; (d) the graph
+    evaluation against the eager one on the same params (sums bit for bit;
+    eval and efficiency img/s both ways); (b) `latest` restored into the
+    live Trainer after its capture, then 2 steps, against the fresh Trainer
+    after the same 2 steps, bit for bit; (c) `M7_TIMED_REPLAYS` timed
+    replays and one profiled replay (busy ms and share, kernels by name),
+    and a save right after one more replay holding that replay's state; then `python -m basd_tpu_torch.evaluate` from the run's snapshot in a
+    subprocess and in this process, reproducing the run's final eval.
+    Returns the readings, the config, the trainer and the launches by path
+    (`train_entry`, `evaluate`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from basd_tpu_torch import evaluate as evaluate_entry
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch import train as train_entry
+    from basd_tpu_torch.data import load_split_arrays
+    from basd_tpu_torch.data.datasets import dataset_info
+    from basd_tpu_torch.evaluation import metrics
+    from basd_tpu_torch.models import create_student
+    from basd_tpu_torch.spectral.ops import use_jacobi
+    from basd_tpu_torch.tools.timing import device_events, device_us
+    from basd_tpu_torch.training import train_step
+    from basd_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(M7_OUT, ignore_errors=True)
+    # every call of the trainer's step: its batch and metrics (references
+    # only: the step returns fresh tensors, so recording adds no device work)
+    recorded = []
+    real_call = train_step.TrainStep.__call__
+
+    def recording_call(self, state, images_u8, labels):
+        state, met = real_call(self, state, images_u8, labels)
+        recorded.append((images_u8, labels, met))
+        return state, met
+
+    kernels.reset_launches()
+    train_step.TrainStep.__call__ = recording_call
+    try:
+        t0 = time.perf_counter()
+        m7_results, trainer = train_entry.main(M7_ARGV, device=dev)
+        torch.cuda.synchronize()
+        m7_wall_s = time.perf_counter() - t0
+    finally:
+        train_step.TrainStep.__call__ = real_call
+    m7_launches = dict(kernels.LAUNCHES)
+    m7_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg = trainer.config
+    k = cfg.basd.subspace_k
+    scfg = trainer.state.student.config
+    steps = trainer.state.step
+    step = trainer._step
+    eval_cfg = cfg.evaluation
+    img, patch = cfg.model.vit.img_size, cfg.model.vit.patch_size
+    eval_batches = -(-128 // cfg.data.batch_size)  # the 128-image test split
+    # K1 in every student block of each forward outside the train steps: the
+    # per-epoch and the final evaluation, the efficiency loop; 12 in the
+    # teacher's forward of the K calibration; none for the FLOP count (a CPU
+    # copy of the model)
+    eval_forwards = 2 * eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches
+    per_step = per_step_launches(scfg, trainer.teacher, trainer.extraction_points, k, True)
+    want = {name: per_step[name] * steps for name in per_step}
+    want["attention_fwd"] += scfg.depth * eval_forwards + teacher_layers(trainer.teacher)
+    # the trainer's kernel start-up check: this process's first Trainer
+    check_launches = trainer.kernel_check_launches
+    want = {name: n + check_launches[name] for name, n in want.items()}
+    if (steps != 8 or not scfg.remat or scfg.embed_dim != 192
+            or per_step["attention_fwd"] != 36 or m7_launches != want
+            or check_launches != KERNEL_CHECK_LAUNCHES):
+        raise AssertionError(f"train entry: {steps} steps, remat {scfg.remat}, "
+                             f"launches {m7_launches}, expected {want} (per step "
+                             f"{per_step}, K={k}; the start-up check's "
+                             f"{check_launches}, expected {KERNEL_CHECK_LAUNCHES})")
+    if step.route != "graph" or step.launches != per_step or len(recorded) != steps:
+        raise AssertionError(f"train entry: route {step.route} ({step.reason}), "
+                             f"launches per replay {step.launches}, expected {per_step}; "
+                             f"{len(recorded)} recorded steps")
+    primary = m7_results["primary"]
+    if not all(np.isfinite(primary[key]) for key in ("val_acc", "val_acc_top5", "loss")):
+        raise AssertionError(f"train entry: primary {primary}")
+    capture_s, pool_bytes = step.capture_s, step.pool_bytes  # the run's own capture
+    print(f"train entry: route {step.route} ({step.reason}); K={k} (Jacobi kernel gate "
+          f"16 <= K <= 96: {use_jacobi((len(trainer.extraction_points), k, k))}); "
+          f"{steps} steps of batch {cfg.data.batch_size}, remat {scfg.remat}; launches "
+          f"{m7_launches} (per step {per_step}, one replay's by the counters "
+          f"{step.launches}; plus K1 x {scfg.depth} in {eval_forwards} eval and "
+          f"efficiency forwards, the calibration's 12 and the kernel start-up check's "
+          f"{check_launches} in {trainer.kernel_check_s:.2f} s); capture "
+          f"{capture_s:.3f} s, graph pool {pool_bytes} bytes; {m7_wall_s:.1f} s",
+          flush=True)
+    trainer_ms = trainer.step_ms
+    bare = "not run" if bare_step_median_ms is None else f"{bare_step_median_ms:.2f}"
+    print(f"train entry: trainer step ms {[round(t, 2) for t in trainer_ms]} (CUDA events "
+          f"between step ends; 1 the eager warm-up, 2 the capture and its replay): "
+          f"replay median (steps 3..{steps}) {np.median(trainer_ms[2:]):.2f}; the bare "
+          f"augmented step (phase 5, remat off, graph) median {bare}; the epoch loop "
+          f"blocked on each save {[round(t, 2) for t in trainer.checkpoints.blocked_ms]} "
+          f"ms; efficiency throughput (replays) "
+          f"{m7_results['efficiency']['throughput_img_per_sec']:.1f} img/s at batch "
+          f"{eval_cfg.get('efficiency_batch_size', 64)}, gflops "
+          f"{m7_results['efficiency']['gflops']:.4f}; peak memory {m7_peak_gib:.2f} GiB "
+          f"({held_gib:.2f} held by earlier phases)", flush=True)
+
+    def state_tensors(tr):
+        st = tr.state
+        out = {f"param {n}": v for n, v in st.student.state_dict().items()}
+        for i, p in enumerate(st.optimizer.param_groups[0]["params"]):
+            out[f"z {i}"] = st.optimizer.state[p]["z"]
+            out[f"v {i}"] = st.optimizer.state[p]["exp_avg_sq"]
+        out["log_temperatures"] = st.selector.log_temperatures
+        out["generator"] = st.generator.get_state()
+        return {n: v.detach().clone() for n, v in out.items()}
+
+    def unequal(a, b) -> list:
+        return [n for n in a if not torch.equal(a[n], b[n])]
+
+    def trainer_of(seed):
+        stu, stu_cfg = create_student(
+            cfg.model.student_preset, num_classes=cfg.model.num_classes,
+            drop_path_rate=cfg.model.drop_path_rate, img_size=img,
+            arch_overrides={**cfg.model.arch_overrides, "patch_size": patch},
+            capture_layers=trainer.extraction_points, dtype=torch.bfloat16,
+            remat=cfg.hardware.remat, device=dev, seed=seed)
+        return Trainer(cfg, student=stu, student_cfg=stu_cfg, teacher=trainer.teacher,
+                       teacher_stats=(trainer.teacher.mean, trainer.teacher.std),
+                       dataset_stats=trainer._eval_stats)
+
+    # (a) the twin: the same seeds (train.run draws the student from
+    # run.seed) and config, op by op on the same 8 batches
+    twin = trainer_of(cfg.run.seed)
+    twin_metrics = []
+    for i, (imgs, labs, _) in enumerate(recorded):
+        if i == 1:  # after the first step built the constants
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            twin.state, met = twin._step.eager(twin.state, imgs, labs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        twin_metrics.append(met)
+    differ = [(i, n) for i, ((_, _, gm), em) in enumerate(zip(recorded, twin_metrics))
+              for n in em if not torch.equal(em[n], gm[n])]
+    live_tensors = state_tensors(trainer)
+    differ_state = unequal(live_tensors, state_tensors(twin))
+    if differ or differ_state or twin.state.step != steps:
+        raise AssertionError(f"train entry: the graph route differs from the twin's eager "
+                             f"steps: metrics {differ[:8]}, state {differ_state[:8]}, "
+                             f"steps {twin.state.step}")
+    print(f"train entry: {steps} graph-route steps bit for bit equal to a twin Trainer's "
+          f"{steps} TrainStep.eager steps on the same batches (losses "
+          f"{[float(m['loss']) for _, _, m in recorded]}; every metric of every step, "
+          f"{len(live_tensors) - 1} parameter, z, v and temperature tensors, the "
+          f"generator's state, the step); twin step 2 ran under "
+          f"set_sync_debug_mode('error'): no host round-trip", flush=True)
+    del twin, twin_metrics
+
+    # the restored `latest` equals the live state bit for bit; the fresh
+    # trainer's student is drawn from another seed, so the restore must
+    # overwrite it
+    fresh = trainer_of(cfg.run.seed + 7)
+    differs_before = len(unequal(live_tensors, state_tensors(fresh)))
+    fresh.load_checkpoint("latest")
+    bad = unequal(live_tensors, state_tensors(fresh))
+    if bad or fresh.state.step != trainer.state.step or not differs_before:
+        raise AssertionError(f"restore latest: {len(bad)} tensors differ {bad[:5]}, step "
+                             f"{fresh.state.step} vs {trainer.state.step}")
+    print(f"train entry: restore_state('latest') into a fresh Trainer equals the live "
+          f"state bit for bit ({len(live_tensors)} tensors: parameters, z, v, "
+          f"log-temperatures, the CUDA generator's state; {differs_before} differed "
+          f"before), step {fresh.state.step}", flush=True)
+
+    # (d) the evaluation: graph against eager on the same params (the
+    # run's final x-point), the eager and replayed img/s side by side
+    split = dataset_info(cfg.data.dataset)
+    images, labels = load_split_arrays(cfg.data.dataset, split["train_split"], img)
+    images, labels = images[:M7_EVAL_IMAGES], labels[:M7_EVAL_IMAGES]
+    params = trainer.eval_model_params()
+    eval_kw = dict(img_size=img, crop_ratio=cfg.data.eval_crop_ratio,
+                   mean=trainer._eval_stats[0], std=trainer._eval_stats[1],
+                   batch_size=cfg.data.batch_size)
+    student = trainer.state.student
+    sums, eval_s = {}, {}
+    for route in ("eager", "graph", "graph", "eager"):
+        fn = metrics.eager_eval_sums if route == "eager" else metrics.graph_eval_sums
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(student, params, images, labels, **eval_kw).cpu()
+        eval_s.setdefault(route, []).append(time.perf_counter() - t0)
+        if route in sums and not torch.equal(sums[route], got):
+            raise AssertionError(f"evaluation: {route} gave {sums[route]}, then {got}")
+        sums[route] = got
+    val_images, val_labels = load_split_arrays(cfg.data.dataset, split["eval_split"], img)
+    val_eager = metrics.eager_eval_sums(student, params, val_images, val_labels,
+                                        **eval_kw).cpu()
+    n_val = len(val_labels)
+    if not torch.equal(sums["eager"], sums["graph"]) or {
+            "val_acc": 100.0 * float(val_eager[1]) / n_val,
+            "val_acc_top5": 100.0 * float(val_eager[2]) / n_val,
+            "loss": float(val_eager[0]) / n_val} != {
+                key: primary[key] for key in ("val_acc", "val_acc_top5", "loss")}:
+        raise AssertionError(f"evaluation: graph sums {sums['graph']} vs eager "
+                             f"{sums['eager']}; the run's final eval {primary} vs eager "
+                             f"sums {val_eager}")
+    forward_kw = dict(image_size=img, batch_size=eval_cfg.get("efficiency_batch_size", 64),
+                      num_warmup=eval_cfg.efficiency_warmup,
+                      num_batches=eval_cfg.efficiency_batches)
+    replayed = metrics.measure_efficiency(student, params, **forward_kw)
+    x = torch.zeros((forward_kw["batch_size"], img, img, 3), device=dev)
+    with torch.no_grad():
+        for _ in range(forward_kw["num_warmup"]):
+            metrics._forward(student, params, x)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(forward_kw["num_batches"]):
+            metrics._forward(student, params, x)
+        end.record()
+        end.synchronize()
+    eager_fwd = forward_kw["batch_size"] * forward_kw["num_batches"] / (
+        start.elapsed_time(end) / 1e3)
+    m7_eval = {
+        "sums": sums["graph"].tolist(), "images": len(labels),
+        "eager_img_per_s": [len(labels) / t for t in eval_s["eager"]],
+        "graph_img_per_s": [len(labels) / t for t in eval_s["graph"]],
+        "efficiency_eager_img_per_s": eager_fwd,
+        "efficiency_replay_img_per_s": replayed["throughput_img_per_sec"],
+        "efficiency_run_img_per_s": m7_results["efficiency"]["throughput_img_per_sec"],
+    }
+    print(f"evaluation: graph route (a replay per full batch of "
+          f"{cfg.data.batch_size}, the tail of {len(labels) % cfg.data.batch_size} eager) "
+          f"equals the eager route on {len(labels)} images at the run's x-point: sums "
+          f"(loss, top1, top5) {m7_eval['sums']} bit for bit; the run's final eval equals "
+          f"the eager route's on the test split; eval img/s eager "
+          f"{[round(v, 1) for v in m7_eval['eager_img_per_s']]}, graph "
+          f"{[round(v, 1) for v in m7_eval['graph_img_per_s']]} (host clock, to the sums "
+          f"on the host); efficiency forward img/s (CUDA events, batch "
+          f"{forward_kw['batch_size']}) eager {eager_fwd:.1f}, replayed "
+          f"{replayed['throughput_img_per_sec']:.1f} (the run's "
+          f"{m7_eval['efficiency_run_img_per_s']:.1f})", flush=True)
+
+    # (b) restore after the capture: the live trainer steps away from
+    # `latest`, restores it and takes 2 steps; the fresh one (restored
+    # above) takes the same 2 steps
+    def two_steps(tr) -> list:
+        out = []
+        for imgs, labs, _ in recorded[:2]:
+            tr.state, met = tr._step(tr.state, imgs, labs)
+            out.append({n: v.cpu() for n, v in met.items()})
+        return out
+
+    kernels.reset_launches()
+    away = two_steps(trainer)
+    trainer.load_checkpoint("latest")
+    if step.graph is not None or step.route is not None:
+        raise AssertionError("restore: the step kept its capture")
+    after = two_steps(trainer)
+    again = two_steps(fresh)
+    restore_launches = dict(kernels.LAUNCHES)
+    bad = [(i, n) for i, (a, b, c) in enumerate(zip(away, after, again)) for n in a
+           if not (torch.equal(a[n], b[n]) and torch.equal(b[n], c[n]))]
+    bad_state = unequal(state_tensors(trainer), state_tensors(fresh))
+    if (bad or bad_state or trainer.state.step != steps + 2
+            or fresh.state.step != steps + 2 or step.route != "graph"
+            or step.graph is None):
+        raise AssertionError(f"restore after capture: metrics {bad[:8]}, state "
+                             f"{bad_state[:8]}, steps {trainer.state.step} / "
+                             f"{fresh.state.step}, route {step.route}")
+    print(f"train entry: `latest` restored into the live Trainer after its capture (2 "
+          f"replays away from it first) and 2 steps (warm-up, capture and replay) equal "
+          f"the fresh Trainer's 2 steps from the same checkpoint and the 2 steps before "
+          f"the restore, bit for bit (every metric, the state, step "
+          f"{trainer.state.step}); recapture {step.capture_s:.3f} s; launches "
+          f"{restore_launches}", flush=True)
+    del fresh
+
+    # (c) the remat graph's replays alone, then one of them profiled
+    imgs, labs, _ = recorded[0]
+    replay_ms = []
+    for _ in range(M7_TIMED_REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.state, _ = step(trainer.state, imgs, labs)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    replay_median = float(np.median(replay_ms))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, _ = step(trainer.state, imgs, labs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    by_name = {n: sum(e.count for e in events if re.match(pat, e.key))
+               for n, pat in KERNEL_NAMES.items()}
+    if by_name != {n: per_step[n] for n in KERNEL_NAMES}:
+        raise AssertionError(f"train entry: kernels by name in a profiled replay "
+                             f"{by_name}, expected {per_step}")
+    # a save right after a replay, as `save_every_steps` makes one: its host
+    # copy reads the state that replay wrote (both on the current stream)
+    trainer.state, _ = step(trainer.state, imgs, labs)
+    saved_dir = trainer.checkpoints.save_state(
+        "after_replay", trainer.state, epoch=0, best_val_acc=0.0, metrics_history={},
+        block=True)
+    saved = torch.load(saved_dir / "state.pt", map_location="cpu", weights_only=True)
+    live = {n: v.cpu() for n, v in trainer.state.student.state_dict().items()}
+    if (unequal(live, saved["student"]) or saved["step"] != trainer.state.step
+            or not torch.equal(saved["generator"], trainer.state.generator.get_state())):
+        raise AssertionError("train entry: a save right after a replay does not hold "
+                             "that replay's state")
+    print(f"train entry: the remat graph's replays {[round(t, 3) for t in replay_ms]} ms "
+          f"(host clock, synchronized), median {replay_median:.3f}; a profiled replay "
+          f"{wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of it, {100 * busy_ms / replay_median:.1f}% of "
+          f"the replay median), {sum(e.count for e in events)} device kernels, the port's "
+          f"by name {by_name}; a save right after a replay holds that replay's "
+          f"parameters, generator and step", flush=True)
+
+    # `python -m basd_tpu_torch.evaluate` from the snapshot, in a subprocess
+    # and in this process
+    snapshot = f"{M7_OUT}/{cfg.run.name}/config.yaml"
+    final_npz = f"{M7_OUT}/{cfg.run.name}/checkpoints/final_model.npz"
+    eval_argv = [f"config={snapshot}", f"checkpoint.path={final_npz}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.evaluate", *eval_argv],
+                          capture_output=True, text=True, timeout=600, env=env)
+    eval_s_sub = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"evaluate exited {proc.returncode}:\n{proc.stdout}"
+                             f"\n{proc.stderr[-4000:]}")
+    if "eval route=graph" not in proc.stdout:
+        raise AssertionError(f"evaluate: no `eval route=graph` line:\n{proc.stdout}")
+    with open(f"{M7_OUT}/{cfg.run.name}/metrics.json") as f:
+        sub_primary = json.load(f)["primary"]
+
+    def same_primary(got):
+        return (got["val_acc"] == primary["val_acc"]
+                and got["val_acc_top5"] == primary["val_acc_top5"]
+                and abs(got["loss"] - primary["loss"]) <= 1e-6 * abs(primary["loss"]))
+
+    kernels.reset_launches()
+    in_process = evaluate_entry.main(eval_argv, device=dev)
+    torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)
+    want_eval = {name: 0 for name in eval_launches}
+    want_eval["attention_fwd"] = scfg.depth * (
+        eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
+    if not (same_primary(sub_primary) and same_primary(in_process["primary"])
+            and eval_launches == want_eval):
+        raise AssertionError(f"evaluate: {sub_primary} (subprocess), "
+                             f"{in_process['primary']} (in process) vs the train run's "
+                             f"{primary}; launches {eval_launches}, expected {want_eval}")
+    print(f"evaluate: `python -m basd_tpu_torch.evaluate` from the snapshot (eval route "
+          f"graph) reproduces the train run's final eval (top1 {primary['val_acc']:.4f}, "
+          f"top5 {primary['val_acc_top5']:.4f}: equal; loss {sub_primary['loss']:.8f} vs "
+          f"{primary['loss']:.8f}, tol 1e-6 relative) in {eval_s_sub:.1f} s; in process "
+          f"launches {eval_launches}, efficiency "
+          f"{in_process['efficiency']['throughput_img_per_sec']:.1f} img/s", flush=True)
+    # the run's checkpoints (about 180 MB) are not kept: config.yaml and
+    # metrics.json stay in chiprun_out/m7
+    trainer.checkpoints.close()
+    shutil.rmtree(f"{M7_OUT}/{cfg.run.name}/checkpoints")
+    m7 = {"k": k, "route": step.route, "reason": step.reason, "trainer_step_ms": trainer_ms,
+          "trainer_replay_median_ms": float(np.median(trainer_ms[2:])),
+          "bare_step_median_ms": bare_step_median_ms,
+          "capture_s": capture_s, "pool_bytes": pool_bytes,
+          "recapture_s": step.capture_s, "recapture_pool_bytes": step.pool_bytes,
+          "launches_per_replay": step.launches, "launches_by_name": by_name,
+          "replay_ms": replay_ms, "replay_median_ms": replay_median,
+          "profiled_replay_ms": wall_ms, "replay_busy_ms": busy_ms,
+          "busy_share_median": busy_ms / replay_median,
+          "replay_kernels": sum(e.count for e in events),
+          "save_blocked_ms": trainer.checkpoints.blocked_ms,
+          "eval_img_per_s": m7_results["efficiency"]["throughput_img_per_sec"],
+          "eval": m7_eval, "peak_gib": m7_peak_gib, "held_gib": held_gib,
+          "wall_s": m7_wall_s, "primary": primary, "kernel_check_s": trainer.kernel_check_s,
+          "restore_launches": restore_launches,
+          "phase_s": time.perf_counter() - t_phase}
+    print(f"train entry: phase {m7['phase_s']:.1f} s", flush=True)
+    return dict(m7=m7, cfg=cfg, trainer=trainer,
+                launches={"train_entry": m7_launches, "evaluate": eval_launches})
+
+
+def trainer_graph_check() -> int:
+    """Phase 8 alone, a few minutes on one card: the kernels built,
+    `trainer_phase`; its readings as one JSON line, then the card's name and
+    power limit. Run it as `python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.trainer_graph_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels.build_all()
+    dev = torch.device("cuda", 0)
+    out = trainer_phase(dev, package_env(), None)
+    print(json.dumps(out["m7"]))
+    print(card_line(dev))
+    return 0
+
+
+def package_env() -> dict:
+    """This process's environment with the repository first on PYTHONPATH,
+    for the entry points it runs in processes of their own (the package is
+    found from this script's directory, whatever the cwd)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH"))
+        if p)
+    return env
+
+
 def free_port() -> int:
     import socket
 
@@ -792,10 +1278,7 @@ def main() -> int:
         device_us,
         kernel_ms,
     )
-    from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.spectral.ops import use_jacobi
-    from basd_tpu_torch import evaluate as evaluate_entry
-    from basd_tpu_torch import train as train_entry
     from basd_tpu_torch.training import train_step
     from basd_tpu_torch.training.train_step import make_train_step
     from basd_tpu_torch.training.trainer import Trainer
@@ -835,11 +1318,7 @@ def main() -> int:
     # the kernels' start-up check as a user runs it alone: one PASS line per
     # kernel of the train path (K1, K2, K4, K3 at tiny shapes against their
     # plain versions) in a process of its own
-    # (the package is found from this script's directory, whatever the cwd)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (os.path.dirname(os.path.abspath(__file__)), env.get("PYTHONPATH"))
-        if p)
+    env = package_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.tools.smoke_kernels"],
                           capture_output=True, text=True, timeout=300, env=env)
@@ -1576,31 +2055,6 @@ def main() -> int:
         del qkv
 
     # ---- 5. the main path: bench.py's augmented step, then augment=False ----
-    def teacher_layers(tch) -> int:
-        """Token layers a teacher gives: every block of a ViT, one for a CNN."""
-        return tch.spec.depth if tch.spec.feature_format == "token" else 1
-
-    def per_step_launches(scfg, tch, pts, k, augment) -> dict:
-        """Each kernel's launches in one train step of a configuration: K1 in
-        every block, teacher's and student's, of a ViT with a CLS token inside
-        the kernel gate (a student block twice under remat: its forward runs
-        again in the backward), K2 in every such student block, K3 in each of
-        the selector's three eighs (teacher and student Rayleigh-Ritz, the
-        principal angles) that the Jacobi gate takes, K4 once per augmented
-        view."""
-        def fused_blocks(c):
-            ok = c.has_cls_token and attn.supports_fused(
-                c.num_patches + 1, c.embed_dim, c.embed_dim // c.num_heads)
-            return c.depth if ok else 0
-
-        student_blocks = fused_blocks(scfg)
-        teacher_blocks = fused_blocks(tch.module.config) if tch.spec.family == "vit" else 0
-        l, p = teacher_layers(tch), len(pts)
-        return {"attention_fwd": student_blocks * (2 if scfg.remat else 1) + teacher_blocks,
-                "attention_bwd": student_blocks,
-                "jacobi_eigh": sum(map(use_jacobi, selector_eigh_shapes(p, l, k))),
-                "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0}
-
     def run_steps(label, stu, tch, sel, pts, k, size, raw_size, ims, lbs, ncls, augment,
                   steps):
         """`steps` train steps of bench.py's step (augment=True) or the
@@ -2072,167 +2526,17 @@ def main() -> int:
           "GiB")
 
     # ---- 8. the trainer and evaluation entry points at Table-3 width ----
-    # `python -m basd_tpu_torch.train` as a user runs it (through `main`):
-    # the paper's Table-3 run at full width (DeiT-Tiny/4 at 32 px with the
-    # DINOv2 ViT-B/14 teacher, random weights from the seed, batch 128, 100
-    # classes, bf16, remat, K auto) on 1,024 synthetic images, one epoch of
-    # 8 steps, `latest` saved every 4; then `python -m basd_tpu_torch.evaluate`
-    # from the run's snapshot in a subprocess, and once more in this process
-    # for its launch counts. The arch_overrides keep the student at DeiT-Tiny
-    # width (a random teacher's intrinsic dimension would shrink it).
+    # `python -m basd_tpu_torch.train` as a user runs it (through `main`), on
+    # the graph route, held against a twin's eager steps; restores; the
+    # evaluation's graphs against eager; `python -m basd_tpu_torch.evaluate`
+    # (`trainer_phase`)
     del table1["state"], table1["step_fn"], table1["teacher"], table1["images"]
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    held_gib = torch.cuda.memory_allocated() / 2**30
-    torch.cuda.reset_peak_memory_stats()
-    out_root = "chiprun_out/m7"
-    shutil.rmtree(out_root, ignore_errors=True)
-    m7_argv = [
-        "experiment=basd_cifar100", "data.dataset=synthetic/cifar100-like-1024n",
-        "training.num_epochs=1",
-        "model.arch_overrides={embed_dim: 192, depth: 12, num_heads: 3, mlp_ratio: 4.0}",
-        "checkpoint.save_every_steps=4", "evaluation.efficiency_warmup=5",
-        "evaluation.efficiency_batches=20", f"run.output_dir={out_root}",
-    ]
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    m7_results, trainer = train_entry.main(m7_argv, device=dev)
-    torch.cuda.synchronize()
-    m7_wall_s = time.perf_counter() - t0
-    m7_launches = dict(kernels.LAUNCHES)
-    m7_peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    m7_cfg = trainer.config
-    m7_k = m7_cfg.basd.subspace_k
+    phase8 = trainer_phase(dev, env, float(np.median(step_ms[1:])))
+    m7, m7_cfg, trainer = phase8["m7"], phase8["cfg"], phase8["trainer"]
+    path_launches.update(phase8["launches"])
+    m7_argv, out_root = M7_ARGV, M7_OUT
     m7_student = trainer.state.student.config
-    m7_steps = trainer.state.step
     eval_cfg = m7_cfg.evaluation
-    eval_batches = -(-128 // m7_cfg.data.batch_size)  # the 128-image test split
-    # K1 in every student block of each forward outside the train steps: the
-    # per-epoch and the final evaluation, the efficiency loop; 12 in the
-    # teacher's forward of the K calibration; none for the FLOP count (a CPU
-    # copy of the model)
-    eval_forwards = 2 * eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches
-    per_step = per_step_launches(m7_student, trainer.teacher, trainer.extraction_points,
-                                 m7_k, True)
-    want = {name: per_step[name] * m7_steps for name in per_step}
-    want["attention_fwd"] += m7_student.depth * eval_forwards + teacher_layers(trainer.teacher)
-    # the trainer's kernel start-up check: this process's first Trainer
-    check_launches = trainer.kernel_check_launches
-    want = {name: n + check_launches[name] for name, n in want.items()}
-    if (m7_steps != 8 or not m7_student.remat or m7_student.embed_dim != 192
-            or per_step["attention_fwd"] != 36 or m7_launches != want
-            or check_launches != KERNEL_CHECK_LAUNCHES):
-        raise AssertionError(f"train entry: {m7_steps} steps, remat {m7_student.remat}, "
-                             f"launches {m7_launches}, expected {want} (per step "
-                             f"{per_step}, K={m7_k}; the start-up check's "
-                             f"{check_launches}, expected {KERNEL_CHECK_LAUNCHES})")
-    primary = m7_results["primary"]
-    if not all(np.isfinite(primary[key]) for key in ("val_acc", "val_acc_top5", "loss")):
-        raise AssertionError(f"train entry: primary {primary}")
-    print(f"train entry: K={m7_k} (Jacobi kernel gate 16 <= K <= 96: "
-          f"{use_jacobi((len(trainer.extraction_points), m7_k, m7_k))}); {m7_steps} steps "
-          f"of batch {m7_cfg.data.batch_size}, remat {m7_student.remat}; launches "
-          f"{m7_launches} (per step {per_step}, plus K1 x {m7_student.depth} in "
-          f"{eval_forwards} eval and efficiency forwards, the calibration's 12 and the "
-          f"kernel start-up check's {check_launches} in {trainer.kernel_check_s:.2f} s); "
-          f"{m7_wall_s:.1f} s")
-    trainer_ms = trainer.step_ms
-    print(f"train entry: trainer step ms {[round(t, 2) for t in trainer_ms]} (CUDA events "
-          f"between step ends): first {trainer_ms[0]:.2f}, median after the first "
-          f"{np.median(trainer_ms[1:]):.2f}; the bare augmented step (phase 5, remat off) "
-          f"median {np.median(step_ms[1:]):.2f}; the epoch loop blocked on each save "
-          f"{[round(t, 2) for t in trainer.checkpoints.blocked_ms]} ms; eval throughput "
-          f"{m7_results['efficiency']['throughput_img_per_sec']:.1f} img/s at batch "
-          f"{eval_cfg.get('efficiency_batch_size', 64)}, gflops {m7_results['efficiency']['gflops']:.4f}; peak memory "
-          f"{m7_peak_gib:.2f} GiB ({held_gib:.2f} held by earlier phases)")
-
-    # the restored `latest` equals the live state bit for bit: every
-    # parameter, z, v, the CUDA generator's state and the step; the fresh
-    # trainer's student is drawn from another seed, so the restore must
-    # overwrite it
-    fresh_student, fresh_cfg = create_student(
-        m7_cfg.model.student_preset, num_classes=m7_cfg.model.num_classes,
-        drop_path_rate=m7_cfg.model.drop_path_rate, img_size=img,
-        arch_overrides={**m7_cfg.model.arch_overrides, "patch_size": patch},
-        capture_layers=trainer.extraction_points, dtype=bf16, remat=True, device=dev,
-        seed=m7_cfg.run.seed + 7)
-    fresh = Trainer(m7_cfg, student=fresh_student, student_cfg=fresh_cfg,
-                    teacher=trainer.teacher,
-                    teacher_stats=(trainer.teacher.mean, trainer.teacher.std),
-                    dataset_stats=trainer._eval_stats)
-
-    def state_tensors(tr):
-        st = tr.state
-        out = {f"param {k}": v for k, v in st.student.state_dict().items()}
-        for i, p in enumerate(st.optimizer.param_groups[0]["params"]):
-            out[f"z {i}"] = st.optimizer.state[p]["z"]
-            out[f"v {i}"] = st.optimizer.state[p]["exp_avg_sq"]
-        out["log_temperatures"] = st.selector.log_temperatures
-        out["generator"] = st.generator.get_state()
-        return out
-
-    live_tensors = state_tensors(trainer)
-    differs_before = sum(not torch.equal(v, state_tensors(fresh)[k])
-                         for k, v in live_tensors.items())
-    fresh.load_checkpoint("latest")
-    restored = state_tensors(fresh)
-    unequal = [k for k, v in live_tensors.items() if not torch.equal(v, restored[k])]
-    if unequal or fresh.state.step != trainer.state.step or not differs_before:
-        raise AssertionError(f"restore latest: {len(unequal)} tensors differ "
-                             f"{unequal[:5]}, step {fresh.state.step} vs "
-                             f"{trainer.state.step}")
-    print(f"train entry: restore_state('latest') into a fresh Trainer equals the live "
-          f"state bit for bit ({len(live_tensors)} tensors: parameters, z, v, "
-          f"log-temperatures, the CUDA generator's state; {differs_before} differed "
-          f"before), step {fresh.state.step}")
-    del fresh, fresh_student
-
-    snapshot = f"{out_root}/{m7_cfg.run.name}/config.yaml"
-    final_npz = f"{out_root}/{m7_cfg.run.name}/checkpoints/final_model.npz"
-    eval_argv = [f"config={snapshot}", f"checkpoint.path={final_npz}"]
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.evaluate", *eval_argv],
-                          capture_output=True, text=True, timeout=600, env=env)
-    eval_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"evaluate exited {proc.returncode}:\n{proc.stdout}"
-                             f"\n{proc.stderr[-4000:]}")
-    with open(f"{out_root}/{m7_cfg.run.name}/metrics.json") as f:
-        sub_primary = json.load(f)["primary"]
-
-    def same_primary(got):
-        return (got["val_acc"] == primary["val_acc"]
-                and got["val_acc_top5"] == primary["val_acc_top5"]
-                and abs(got["loss"] - primary["loss"]) <= 1e-6 * abs(primary["loss"]))
-
-    kernels.reset_launches()
-    in_process = evaluate_entry.main(eval_argv, device=dev)
-    torch.cuda.synchronize()
-    eval_launches = dict(kernels.LAUNCHES)
-    want_eval = {name: 0 for name in eval_launches}
-    want_eval["attention_fwd"] = m7_student.depth * (
-        eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
-    if not (same_primary(sub_primary) and same_primary(in_process["primary"])
-            and eval_launches == want_eval):
-        raise AssertionError(f"evaluate: {sub_primary} (subprocess), "
-                             f"{in_process['primary']} (in process) vs the train run's "
-                             f"{primary}; launches {eval_launches}, expected {want_eval}")
-    print(f"evaluate: `python -m basd_tpu_torch.evaluate` from the snapshot reproduces "
-          f"the train run's final eval (top1 {primary['val_acc']:.4f}, top5 "
-          f"{primary['val_acc_top5']:.4f}: equal; loss {sub_primary['loss']:.8f} vs "
-          f"{primary['loss']:.8f}, tol 1e-6 relative) in {eval_s:.1f} s; in process "
-          f"launches {eval_launches}")
-    path_launches["train_entry"] = m7_launches
-    path_launches["evaluate"] = eval_launches
-    # the run's checkpoints (about 180 MB) are not kept: config.yaml and
-    # metrics.json stay in chiprun_out/m7
-    trainer.checkpoints.close()
-    shutil.rmtree(f"{out_root}/{m7_cfg.run.name}/checkpoints")
-    m7 = {"k": m7_k, "trainer_step_ms": trainer_ms, "bare_step_median_ms":
-          float(np.median(step_ms[1:])), "save_blocked_ms": trainer.checkpoints.blocked_ms,
-          "eval_img_per_s": m7_results["efficiency"]["throughput_img_per_sec"],
-          "peak_gib": m7_peak_gib, "held_gib": held_gib, "wall_s": m7_wall_s,
-          "primary": primary, "kernel_check_s": trainer.kernel_check_s}
 
     # ---- 9. data and tensor parallelism, the ranks sharing this card ----
     # NCCL refuses two ranks on one card, so the ranks talk over gloo (the

@@ -51,7 +51,8 @@ ROUTES = {
     "table2_teacher_batch_1": ("cuda", TABLE2, {}, "eager",
                                "eigh (1, 72, 72) is outside the Jacobi gate"),
     "mesh": ("cuda", TABLE3, {"mesh": object()}, "eager", "a mesh"),
-    "remat": ("cuda", TABLE3, {"remat": True}, "eager", "remat"),
+    "remat": ("cuda", TABLE3, {"remat": True}, "graph",
+              "remat's recomputation of each student block inside the backward"),
 }
 
 
