@@ -1,0 +1,7 @@
+"""Device ms of the teacher's forward in one step:
+the operations launched inside basd:teacher of a profiled eager step
+(`TrainStep.eager`), on any thread. A replay launches the same kernels."""
+
+
+def read(r):
+    return r.trace.eager.stage_ms(("basd:teacher",))
