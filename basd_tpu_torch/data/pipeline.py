@@ -9,6 +9,7 @@ in flight, so the copy of batch k+1 overlaps step k.
 from __future__ import annotations
 
 from collections import deque
+from contextlib import nullcontext
 from typing import Iterator
 
 import numpy as np
@@ -68,11 +69,20 @@ def prefetch_to_device(
     *,
     device,
     size: int = 2,
+    spans=None,
 ) -> Iterator[tuple[torch.Tensor, ...]]:
-    """Keep `size` batches in flight to `device` (double buffering)."""
+    """Keep `size` batches in flight to `device` (double buffering). With
+    `spans` (the step's `utils.spans.SpanRecorder`), producing each batch
+    (pulling it from `iterator`, pinning it, issuing its copy) is a
+    `basd_host:input` span."""
     queue: deque = deque()
-    for batch in iterator:
-        queue.append(to_device(batch, device))
+    batches = iter(iterator)
+    while True:
+        try:
+            with nullcontext() if spans is None else spans.input_span():
+                queue.append(to_device(next(batches), device))
+        except StopIteration:
+            break
         if len(queue) >= size:
             yield queue.popleft()
     while queue:

@@ -72,6 +72,12 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream
         "basd_attn_probe": [_P] * 5 + [_I] * 6 + [_P],
     },
+    "spans": {
+        # flag, ring, slot, boundary, width, steps, closing, stream: the
+        # train step's span stamps (utils/spans.py), no ported kernel and
+        # no launch counter
+        "basd_span_stamp_launch": [_P] * 3 + [_I] * 4 + [_P],
+    },
 }
 
 LAUNCHES: dict[str, int] = {

@@ -16,6 +16,7 @@ import torch
 from basd_tpu_torch.losses.procrustes import procrustes_loss_mixed
 from basd_tpu_torch.losses.selector import SelectorState, select_and_mix
 from basd_tpu_torch.parallel.mesh import data_all_reduce
+from basd_tpu_torch.utils.spans import span
 
 _EPS = torch.finfo(torch.float32).eps
 
@@ -63,33 +64,38 @@ def basd_loss(
     label_smoothing: float,
     subspace_k: int | None = None,
     mesh=None,
+    spans=None,
 ) -> tuple[torch.Tensor, dict]:
     """Full BASD objective. Returns (scalar loss, aux diagnostics). Over a
     `mesh` the inputs are this rank's slice and the returned loss is the
     slice's share of the global loss (the one to differentiate); `aux`
-    holds the global `loss`, `ce_loss` and `geo_loss`."""
+    holds the global `loss`, `ce_loss` and `geo_loss`. With `spans` (the
+    step's `utils.spans.SpanRecorder`) the selector is the `select` span and
+    the rest, from the Procrustes terms on, the `procrustes` span."""
     total_b = None if mesh is None else student_logits.shape[0] * mesh.data
     ce = cross_entropy(student_logits, soft_targets, label_smoothing,
                        batch_total=total_b)
-    mixed_tokens, mixed_importance, aux = select_and_mix(
-        selector, student_tokens, teacher_tokens, teacher_importance,
-        subspace_k=subspace_k, mesh=mesh,
-    )
-    geo = torch.stack([
-        procrustes_loss_mixed(
-            student_tokens[i], mixed_tokens[i], mixed_importance[i],
-            batch_total=total_b,
+    with span(spans, "select"):
+        mixed_tokens, mixed_importance, aux = select_and_mix(
+            selector, student_tokens, teacher_tokens, teacher_importance,
+            subspace_k=subspace_k, mesh=mesh,
         )
-        for i in range(student_tokens.shape[0])
-    ]).mean()
-    losses = torch.stack([ce, geo])
-    if mesh is None:
-        w = uw_so_weights(losses)
-        total = torch.sum(w * losses)
-        aux.update({"ce_loss": ce, "geo_loss": geo, "uw_so_weights": w})
-        return total, aux
-    global_losses = data_all_reduce(losses, mesh, "loss_sums")
-    w = uw_so_weights(global_losses)
-    aux.update({"ce_loss": global_losses[0], "geo_loss": global_losses[1],
-                "uw_so_weights": w, "loss": torch.sum(w * global_losses)})
-    return torch.sum(w * losses), aux
+    with span(spans, "procrustes"):
+        geo = torch.stack([
+            procrustes_loss_mixed(
+                student_tokens[i], mixed_tokens[i], mixed_importance[i],
+                batch_total=total_b,
+            )
+            for i in range(student_tokens.shape[0])
+        ]).mean()
+        losses = torch.stack([ce, geo])
+        if mesh is None:
+            w = uw_so_weights(losses)
+            total = torch.sum(w * losses)
+            aux.update({"ce_loss": ce, "geo_loss": geo, "uw_so_weights": w})
+            return total, aux
+        global_losses = data_all_reduce(losses, mesh, "loss_sums")
+        w = uw_so_weights(global_losses)
+        aux.update({"ce_loss": global_losses[0], "geo_loss": global_losses[1],
+                    "uw_so_weights": w, "loss": torch.sum(w * global_losses)})
+        return torch.sum(w * losses), aux

@@ -33,7 +33,6 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from basd_tpu_torch.device import CapturedCall
 from basd_tpu_torch.losses import basd_loss
@@ -59,6 +58,7 @@ from basd_tpu_torch.ops.preprocess import (
 from basd_tpu_torch.parallel.mesh import all_reduce_grads, data_all_reduce
 from basd_tpu_torch.spectral.ops import use_jacobi
 from basd_tpu_torch.training.schedule_free import ScheduleFreeAdamW
+from basd_tpu_torch.utils.spans import STEP, SpanRecorder
 
 
 @dataclass
@@ -183,11 +183,16 @@ class TrainStep:
     next call routes, warms up and captures again: `Trainer.load_checkpoint`
     calls it, since `optimizer.load_state_dict` replaces the z and
     exp_avg_sq tensors that the graph writes. `graph`, `launches`,
-    `capture_s` and `pool_bytes` are the `CapturedCall`'s."""
+    `capture_s` and `pool_bytes` are the `CapturedCall`'s.
 
-    def __init__(self, body, route_for):
+    `spans` is the step's `utils.spans.SpanRecorder` (a CPU one when none
+    is given): `body` stamps its stages there, and a call's host work is
+    its `basd_host:launch` span."""
+
+    def __init__(self, body, route_for, spans: SpanRecorder | None = None):
         self.body = body
         self._route_for = route_for
+        self.spans = SpanRecorder("cpu") if spans is None else spans
         self.forget()
 
     def forget(self) -> None:
@@ -221,22 +226,23 @@ class TrainStep:
         if self.route is None:
             self.route, self.reason = self._route_for(images_u8.shape[0])
             print(f"train_step route={self.route}: {self.reason}", flush=True)
-        if self.route == "eager":
-            return self.eager(state, images_u8, labels)
-        if self._state is None:
-            self._state = state
-            self._inputs = (torch.empty_like(images_u8), torch.empty_like(labels))
-            self._slots = _optimizer_slots(state.optimizer)
-            self._call = CapturedCall(lambda: self.body(state, *self._inputs),
-                                      images_u8.device, state.generator)
-        else:
-            self._check(state, images_u8, labels)
-        self._inputs[0].copy_(images_u8)
-        self._inputs[1].copy_(labels)
-        state.optimizer.advance()
-        metrics = self._call()
-        state.step += 1
-        return state, {k: v.clone() for k, v in metrics.items()}
+        with self.spans.launch_span():
+            if self.route == "eager":
+                return self.eager(state, images_u8, labels)
+            if self._state is None:
+                self._state = state
+                self._inputs = (torch.empty_like(images_u8), torch.empty_like(labels))
+                self._slots = _optimizer_slots(state.optimizer)
+                self._call = CapturedCall(lambda: self.body(state, *self._inputs),
+                                          images_u8.device, state.generator)
+            else:
+                self._check(state, images_u8, labels)
+            self._inputs[0].copy_(images_u8)
+            self._inputs[1].copy_(labels)
+            state.optimizer.advance()
+            metrics = self._call()
+            state.step += 1
+            return state, {k: v.clone() for k, v in metrics.items()}
 
     def _check(self, state, images_u8, labels) -> None:
         if state is not self._state:
@@ -282,7 +288,9 @@ def make_train_step(
     metrics), updating `state` in place: a `TrainStep`, one CUDA graph
     replayed per step where `step_route` allows, else eager. `step_fn.body`
     is the step without the optimizer's host bookkeeping and the step count;
-    `step_fn.eager` the whole step op by op. `augment=True` is bench.py's
+    `step_fn.eager` the whole step op by op; `step_fn.spans` the step's
+    `utils.spans.SpanRecorder` on the student's device (off until
+    `step_fn.spans.on()`). `augment=True` is bench.py's
     step: the augmented student view and mixed soft targets, with the draws
     from `sample_step_draws(state.generator, batch)`. `augment=False` is the
     deterministic mode: both views are the eval transform and the targets
@@ -296,6 +304,7 @@ def make_train_step(
 
     views = dict(img_size=img_size, crop_ratio=crop_ratio,
                  teacher_stats=teacher_stats, dataset_stats=dataset_stats)
+    spans = SpanRecorder(next(student.parameters()).device)
 
     def init_fn(seed: int, selector: SelectorState) -> TrainState:
         return init_train_state(
@@ -306,12 +315,17 @@ def make_train_step(
     def body(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor) -> dict:
         """The step's device work: every operation reads the device, and the
         optimizer's update reads the coefficients its host half filled."""
+        with spans.span(STEP):
+            return stages(state, images_u8, labels)
+
+    def stages(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor) -> dict:
         b = images_u8.shape[0]
         # a rank's rows of the global batch: (first row, global batch)
         rows = None if mesh is None else (mesh.data_index * b, mesh.data * b)
-        # the named ranges show each stage in a torch.profiler trace
+        # each stage a span: stamped on the device, and a named range in a
+        # torch.profiler trace
         if augment:
-            with record_function("basd:augment"):
+            with spans.span("basd:augment"):
                 if rows is None:
                     draws = sample_step_draws(state.generator, b)
                 else:
@@ -324,16 +338,16 @@ def make_train_step(
                     augmented, labels, draws.mix, num_classes=num_classes,
                     neighbour=neighbour)
         else:
-            with record_function("basd:views"):
+            with spans.span("basd:views"):
                 clean, student_imgs = dual_view_eval(images_u8, **views)
                 soft_targets = F.one_hot(labels.long(), num_classes).float()
-        with record_function("basd:teacher"):
+        with spans.span("basd:teacher"):
             teacher_tokens, teacher_importance = extract_intermediates(
                 teacher, clean)
-        with record_function("basd:student_forward"):
+        with spans.span("basd:student_forward"):
             out = state.student(student_imgs, train=True,
                                 generator=state.generator, batch_rows=rows)
-        with record_function("basd:loss"):
+        with spans.span("basd:loss"):
             loss, aux = basd_loss(
                 state.selector,
                 out.logits,
@@ -344,13 +358,14 @@ def make_train_step(
                 label_smoothing=label_smoothing,
                 subspace_k=subspace_k,
                 mesh=mesh,
+                spans=spans,
             )
-        with record_function("basd:backward"):
+        with spans.span("basd:backward"):
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             if mesh is not None:
                 all_reduce_grads(state.optimizer.param_groups[0]["params"], mesh)
-        with record_function("basd:optimizer"):
+        with spans.span("basd:optimizer"):
             state.optimizer.update()
 
         # train accuracy against the original labels
@@ -380,4 +395,4 @@ def make_train_step(
             teacher_tokens=teacher.num_tokens, batch=batch, subspace_k=subspace_k,
             mesh=mesh, remat=cfg.remat)
 
-    return init_fn, TrainStep(body, route_for)
+    return init_fn, TrainStep(body, route_for, spans)

@@ -151,6 +151,8 @@ class Trainer:
             mesh=mesh,
         )
         self.state = init_fn(config.run.seed, selector)
+        # the step's span recorder, which also times the input path
+        self.spans = self._step.spans
 
         ckpt_dir = Path(config.run.output_dir) / config.run.name / "checkpoints"
         self.checkpoints = CheckpointManager(ckpt_dir, mesh=mesh)
@@ -205,6 +207,7 @@ class Trainer:
                 start_batch, None,
             ),
             device=self.device,
+            spans=self.spans,
         ):
             self.state, metrics = self._step(self.state, imgs, labs)
             clock.mark()

@@ -3,8 +3,6 @@
   * `profile_trace`       -- a `torch.profiler` trace (host and CUDA
                             activity) around a block, written as a Chrome
                             trace (viewable in Perfetto),
-  * `StepTimer`           -- host-clock step timing that synchronizes CUDA,
-                            with a percentile summary,
   * `step_cost_analysis`  -- FLOPs, transcendentals and bytes accessed of
                             everything one call of a function does, backward
                             included (the counterpart of the JAX package's
@@ -16,10 +14,8 @@ The forward FLOPs of one image of a model are `evaluation.metrics.count_flops`.
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -42,46 +38,6 @@ def profile_trace(log_dir: str | Path):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(log_dir / "trace.json"))
-
-
-def _sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Wall-clock step timing; every reading ends in a CUDA synchronize, so
-    it times the device work, not its enqueue."""
-
-    def __init__(self):
-        self.times_ms: list[float] = []
-
-    @contextlib.contextmanager
-    def measure(self):
-        _sync()
-        start = time.perf_counter()
-        yield
-        _sync()
-        self.times_ms.append((time.perf_counter() - start) * 1e3)
-
-    def time_fn(self, fn, *args, iters: int = 20, warmup: int = 3):
-        out = None
-        for _ in range(warmup):
-            out = fn(*args)
-        for _ in range(iters):
-            with self.measure():
-                out = fn(*args)
-        return out
-
-    def summary(self) -> dict[str, float]:
-        t = np.asarray(self.times_ms)
-        return {
-            "mean_ms": float(t.mean()),
-            "p50_ms": float(np.percentile(t, 50)),
-            "p90_ms": float(np.percentile(t, 90)),
-            "min_ms": float(t.min()),
-            "steps": len(t),
-        }
 
 
 # ops whose every output element is one transcendental, as XLA's cost
