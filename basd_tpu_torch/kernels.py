@@ -41,7 +41,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # the C libraries and the ctypes signatures of their entry points
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES: dict[str, dict[str, list]] = {
     "attention": {
         # q, k, v, o, m, denom, B, N, H, hd, q strides (b, n), k strides,
@@ -72,6 +72,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # q, k, v, o, tile_max, B, H, N, hd, group, variant, stream
         "basd_attn_probe": [_P] * 5 + [_I] * 6 + [_P],
     },
+    "mp_rank": {
+        # gram, ranks, diag, off2, batch, n, cluster, m, edge, stream
+        "basd_mp_rank": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    },
     "spans": {
         # flag, ring, slot, boundary, width, steps, closing, stream: the
         # train step's span stamps (utils/spans.py), no ported kernel and
@@ -87,6 +91,7 @@ LAUNCHES: dict[str, int] = {
     "warp": 0,
     "jacobi_eigvals": 0,
     "attn_probe": 0,
+    "mp_rank": 0,
 }
 
 # the open tallies of `utils.profiling.step_cost_analysis`

@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from basd_tpu_torch.device import device_constant
+from basd_tpu_torch.spectral import mp_rank_kernel
 from basd_tpu_torch.spectral.jacobi_kernel import kernel_jacobi_eigh
+from basd_tpu_torch.spectral.mp_rank_kernel import kernel_mp_rank_gram, mp_covariance
 from basd_tpu_torch.spectral.tridiag import mp_rank_sturm
 
 _F32 = torch.float32
@@ -36,6 +38,14 @@ def use_jacobi(shape) -> bool:
     for d in shape[:-2]:
         b *= d
     return 16 <= n <= 96 and b >= 4
+
+
+def use_mp_kernel(n: int) -> bool:
+    """The MP-rank kernel's gate, by n alone: every n from 8 to the largest
+    that a cluster of 8 CTAs holds in shared memory (`mp_rank_kernel.MAX_N`,
+    659). Larger n (only the teacher's intrinsic dimension at staging) keeps
+    the plain `mp_rank_sturm`, n < 8 `eigvalsh`."""
+    return mp_rank_kernel.MIN_N <= n <= mp_rank_kernel.MAX_N
 
 
 class _EighSafe(torch.autograd.Function):
@@ -111,8 +121,9 @@ def marchenko_pastur_rank_gram(gram: torch.Tensor, m: int) -> torch.Tensor:
     """`marchenko_pastur_rank` from an UNCENTERED Gram X^T X (..., D, D)
     of M samples."""
     d = gram.shape[-1]
-    cov = gram.to(_F32) / m
-    cov = (cov + cov.transpose(-1, -2)) * 0.5
+    if use_mp_kernel(d):
+        return kernel_mp_rank_gram(gram, m)
+    cov = mp_covariance(gram, m)
     if d >= 8:
         return mp_rank_sturm(cov, m)
     eigvals = torch.linalg.eigvalsh(cov)

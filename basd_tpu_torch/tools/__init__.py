@@ -5,7 +5,7 @@ the attribution probes (`probe_selector_internals`, `probe_loss_tail`,
 `probe_step_gap`, `probe_teacher_block`, `probe_student_bwd`,
 `probe_dualview`, `probe_ns_precision`), the kernels' start-up check
 standalone (`smoke_kernels`) and the kernels' A/B timers (`time_jacobi`,
-`time_warp`, `time_attn_probe`). Run each as `python -m
+`time_warp`, `time_attn_probe`, `time_mp_rank`). Run each as `python -m
 basd_tpu_torch.tools.<name>`; each runs on the CUDA card unless its `main`
 is given `device="cpu"`, and takes its sizes as keyword arguments (the
 tuners) or its JAX tool's command line and keyword sizes (the profiler and

@@ -4,10 +4,10 @@
 Before a long run stages data and steps, `validate_kernel_dispatches`
 runs each kernel once at a tiny real shape on the card and holds its
 result against the kernel's plain torch version on the same inputs:
-attention forward (K1) and backward (K2), the TrivialAugment warp (K4) and
-the Jacobi eigh (K3, its ping-pong route). A kernel that fails to build,
-to launch or to agree raises a `RuntimeError` that names it and carries
-the original error. Nothing is switched: the port has no fallback, so a
+attention forward (K1) and backward (K2), the TrivialAugment warp (K4),
+the Jacobi eigh (K3, its ping-pong route) and the MP rank (its one-CTA
+route). A kernel that fails to build, to launch or to agree raises a
+`RuntimeError` that names it and carries the original error. Nothing is switched: the port has no fallback, so a
 run that cannot use a kernel stops here rather than inside its first step.
 On the CPU the plain versions run, so there is nothing to check.
 
@@ -26,7 +26,8 @@ from basd_tpu_torch import kernels
 
 # K1/K2 in bf16: max |kernel - plain| / max |plain| (chip_smoke phase 4's
 # bound for the bf16 attention kernels); K3's ping-pong route and K4 round
-# every operation as their plain versions do, so those are held bit for bit
+# every operation as their plain versions do, so those are held bit for bit,
+# as are the MP rank's integer ranks
 BF16_ATTENTION_TOL = 2e-2
 
 _VALIDATED: set[str] = set()
@@ -118,6 +119,22 @@ def _jacobi(device: torch.device) -> str:
     return _bit_for_bit(zip(got, want), "jacobi")
 
 
+def _mp_rank(device: torch.device) -> str:
+    """Four Grams of 48 samples at n = 16, with 1 to 4 of their directions
+    scaled up, against `mp_rank_sturm` on the covariance."""
+    from basd_tpu_torch.spectral.mp_rank_kernel import kernel_mp_rank_gram, mp_covariance
+    from basd_tpu_torch.spectral.tridiag import mp_rank_sturm
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4, 48, 16)).astype(np.float32)
+    for i in range(4):
+        x[i, :, : i + 1] *= 6.0
+    x = torch.from_numpy(x).to(device)
+    gram = x.transpose(1, 2) @ x
+    got = kernel_mp_rank_gram(gram, 48)
+    return _bit_for_bit([(got, mp_rank_sturm(mp_covariance(gram, 48), 48))], "mp_rank")
+
+
 # (name, check): each check launches its kernels on `device` and returns
 # what it read, or raises
 KERNEL_CHECKS = (
@@ -125,6 +142,7 @@ KERNEL_CHECKS = (
     ("attention_bwd", _attention_bwd),
     ("warp", _warp),
     ("jacobi", _jacobi),
+    ("mp_rank", _mp_rank),
 )
 
 

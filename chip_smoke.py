@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the exit code is not 0:
   2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once); `python -m
      basd_tpu_torch.tools.smoke_kernels` in a process of its own, exit 0
-     and four PASS lines (K1, K2, K4, K3 once at a tiny shape against their
-     plain versions: the trainer's start-up check); the HMMA (tensor-core)
+     and five PASS lines (K1, K2, K4, K3 and the MP rank once at a tiny
+     shape against their plain versions: the trainer's start-up check); the
+     HMMA (tensor-core)
      instructions in each bf16 attention kernel's and each attention-probe
      kernel's SASS (cuobjdump), none allowed to have none; the instruction
      mix of one rotation step of K3 at n = 48 and of K5 (and of its
@@ -81,11 +82,23 @@ Phases, in order; any failure raises and the exit code is not 0:
      raises) and 6 calls of the other's graph route (an eager warm-up, the
      capture and its replay, 4 replays), bit for bit equal in every loss and
      metric, the parameters, temperatures, optimizer state and generator
-     state; K1 24, K2 12, K3 3, K4 1 per replay by the counters and by
+     state; K1 24, K2 12, K3 3, K4 1, MP rank 1 per replay by the counters and by
      kernel name in a torch.profiler trace of one replay; the eager and
      replay step medians, the replay's device-busy share, the capture's
      seconds and the graph pool's bytes; Table-1's and Table-2's routes
      (eager, with the eigh shape that goes to cuSOLVER);
+  5f. the MP-rank kernel (`mp_rank_check()` in a process of its own): its
+     ranks equal to the plain version's (`mp_rank_sturm`, op by op on the
+     card) and to the float64 oracle's (or off only by eigenvalues at the
+     edge) on planted covariances (designed spectra and spiked noise) at
+     the cells' (12, 192, 192) and (24, 384, 384), at n = 8, 33, the
+     one-CTA route's last n (238), the two-CTA route's first (239), 512 and
+     640 (eight CTAs), every cluster that holds n = 384 giving the same
+     ranks, and on the benchmark cells' own teacher Grams from their first
+     three (eager) steps; its tridiagonal and the plain version's within
+     MP_TRIDIAG_RTOL of the float64 reduction; then the kernel's device
+     time beside the plain version's replayed graph and `eigvalsh`
+     (`tools/time_mp_rank.py`);
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
@@ -188,9 +201,9 @@ MEASURE_ARGS = {"profile_step": ["--n", "10"], "profile_step_imagenet": ["--n", 
 BF16_ULPS_8 = 8 * 2.0**-8
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
-# in the backward check's forward, K2, K4, K3
+# in the backward check's forward, K2, K4, K3, the MP-rank kernel
 KERNEL_CHECK_LAUNCHES = {"attention_fwd": 2, "attention_bwd": 1, "jacobi_eigh": 1,
-                         "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0}
+                         "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1}
 
 
 def table1_inputs(dev):
@@ -536,7 +549,8 @@ KERNEL_NAMES = {name: r"void \(anonymous namespace\)::" + pattern + r"[<(]" for 
                 (("attention_fwd", r"attn_fwd_(mma|kernel)"),
                  ("attention_bwd", r"attn_(bwd_)?dq_(mma|kernel)"),
                  ("jacobi_eigh", r"jacobi_(pingpong|vt_replay)_kernel"),
-                 ("warp", r"warp_\w*kernel"))}
+                 ("warp", r"warp_\w*kernel"),
+                 ("mp_rank", r"mp_rank_kernel"))}
 
 
 def teacher_layers(tch) -> int:
@@ -551,10 +565,11 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     again in the backward), K2 in every such student block, K3 in each of
     the selector's three eighs (teacher and student Rayleigh-Ritz, the
     principal angles) that the Jacobi gate takes, K4 once per augmented
-    view."""
+    view, the MP-rank kernel once (the teacher layers' ranks at n = D_s)
+    inside its gate."""
     from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.ops import attention as attn
-    from basd_tpu_torch.spectral.ops import use_jacobi
+    from basd_tpu_torch.spectral.ops import use_jacobi, use_mp_kernel
 
     def fused_blocks(c):
         ok = c.has_cls_token and attn.supports_fused(
@@ -567,7 +582,8 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     return {"attention_fwd": student_blocks * (2 if scfg.remat else 1) + teacher_blocks,
             "attention_bwd": student_blocks,
             "jacobi_eigh": sum(map(use_jacobi, selector_eigh_shapes(p, l, k))),
-            "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0}
+            "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0,
+            "mp_rank": int(use_mp_kernel(scfg.embed_dim))}
 
 
 def stage_table3(dev) -> dict:
@@ -762,14 +778,235 @@ def graph_check() -> int:
     kernels.build_all()
     dev = torch.device("cuda", 0)
     per_step = {"attention_fwd": 24, "attention_bwd": 12, "jacobi_eigh": 3, "warp": 1,
-                "jacobi_eigvals": 0, "attn_probe": 0}
+                "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1}
     readings = graph_phase(dev, stage_table3(dev), per_step, MAIN_STEPS)
     print(json.dumps(readings))
     print(card_line(dev))
     return 0
 
 
+# phase 5f: the MP-rank kernel (`csrc/mp_rank.cu`) against its plain version
+# (`spectral/tridiag.py:mp_rank_sturm`, op by op on the card) and the float64
+# oracle. Ranks equal to the plain version's; against the oracle equal, or
+# differing only by eigenvalues within MP_EDGE_RTOL of the edge. The
+# tridiagonal: the same reflectors with fp32 sums of x^T x, A v and p^T v
+# in another order; after n - 2 steps two fp32 reductions of one matrix
+# differ by far more than one rounding where a column's norm below the
+# diagonal is small, as in the designed spectra's flat bulk. So the kernel's
+# and the plain version's are each held against the float64 reduction
+# (`householder_tridiag_np`) within MP_TRIDIAG_RTOL: the diagonal relative
+# to max|diag|, the squared off-diagonal to max|diag|^2. The plain version
+# reads up to 1.26e-3 and 2.06e-4 there (the designed (24, 384, 384)), the
+# kernel 1.56e-3 and 3.12e-4; on the cells' Grams both stay below 2.5e-5
+# and 1.1e-7 (an H100 at 700 W, PERF.md section 6).
+MP_TRIDIAG_RTOL = (5e-3, 1e-3)
+# (batch, n) of the planted covariances (m = 4 n): the cells' teacher Grams
+# (192 on one CTA, 384 on four) and the edges of the cluster routes (n = 8,
+# the one-CTA route's last n 238 and the two-CTA route's first 239, 512 and
+# 640 on eight)
+MP_PLANTED = ((12, 192), (24, 384), (4, 8), (4, 33), (4, 238), (4, 239), (4, 512),
+              (2, 640))
+# the cells whose teacher Grams the check reads from their first three steps
+MP_CELLS = ("t3_cifar100_train", "t1_imagenet_train")
+
+
+def planted_mp_features(rng, b: int, n: int, m: int, spiked: bool) -> tuple:
+    """((b, m, n) float64 features, planted ranks). Designed: the
+    covariance's eigenvalues are the planted rank's at 3 to 30 times the
+    MP edge factor, the rest uniform within min(0.4, (edge - 1) / 2) of 1,
+    so the median lies near 1 and no eigenvalue near the threshold. Spiked: Gaussian noise plus the planted
+    rank's strong directions, so the noise's top eigenvalues crowd the
+    edge, as tokens' do."""
+    feats, ranks = [], []
+    edge = (1.0 + (n / m) ** 0.5) ** 2
+    for _ in range(b):
+        r = int(rng.integers(1, max(2, n // 4)))
+        if spiked:
+            x = rng.standard_normal((m, n))
+            u = rng.standard_normal((m, r)) / m ** 0.5
+            w = np.linalg.qr(rng.standard_normal((n, r)))[0]
+            x += (u * (edge * rng.uniform(3.0, 30.0, r)) ** 0.5 * m ** 0.5) @ w.T
+        else:
+            half = min(0.4, (edge - 1.0) / 2)
+            lam = np.concatenate([edge * rng.uniform(3.0, 30.0, r),
+                                  rng.uniform(1.0 - half, 1.0 + half, n - r)])
+            q = np.linalg.qr(rng.standard_normal((m, n)))[0]
+            v = np.linalg.qr(rng.standard_normal((n, n)))[0]
+            x = (q * (m * lam) ** 0.5) @ v.T
+        feats.append(x)
+        ranks.append(r)
+    return np.stack(feats), ranks
+
+
+def householder_tridiag_np(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """`spectral.tridiag.householder_tridiag` in float64 numpy: (diag
+    (b, n), off (b, n - 1)) of symmetric (b, n, n)."""
+    a = (a + a.transpose(0, 2, 1)) * 0.5
+    n = a.shape[-1]
+    idx = np.arange(n)
+    for k in range(n - 2):
+        x = a[:, :, k] * (idx > k)
+        xnorm = np.sqrt((x * x).sum(-1, keepdims=True))
+        alpha = -np.where(a[:, k + 1, k][:, None] >= 0.0, 1.0, -1.0) * xnorm
+        v = x - np.where(idx == k + 1, alpha, 0.0)
+        vtv = (v * v).sum(-1, keepdims=True)
+        tau = np.where(vtv > 0.0, 2.0 / np.where(vtv > 0.0, vtv, 1.0), 0.0)
+        p = tau * np.einsum("bij,bj->bi", a, v)
+        u = p - 0.5 * tau * (p * v).sum(-1, keepdims=True) * v
+        a = a - v[:, :, None] * u[:, None, :] - u[:, :, None] * v[:, None, :]
+    return np.diagonal(a, axis1=1, axis2=2), np.diagonal(a[:, 1:, :-1], axis1=1, axis2=2)
+
+
+def cell_teacher_grams(cell: str, seed: int, dev) -> list:
+    """The selector's teacher Grams and sample counts of a benchmark cell's
+    first three steps, run eagerly from the cell's seeds."""
+    import importlib
+
+    import torch
+
+    from basd_tpu_torch.losses import selector as selector_mod
+    from benchmark.harness import Feed, cell_spec, derive_seeds
+
+    spec = cell_spec(cell)
+    cfg = spec.config
+    seeds = derive_seeds(seed)
+    prog = importlib.import_module(f"benchmark.stage.{cfg['family']}").Program(cfg, seeds, dev)
+    feed = Feed(cfg, spec.traffic, seeds["data"], dev, keep=0)
+    real = selector_mod.marchenko_pastur_rank_gram
+    seen = []
+    selector_mod.marchenko_pastur_rank_gram = (
+        lambda g, m: seen.append((g.detach().clone(), m)) or real(g, m))
+    try:
+        for _ in range(3):
+            prog.eager_step(*next(feed))
+    finally:
+        selector_mod.marchenko_pastur_rank_gram = real
+    # one call a step on (layers, D_s, D_s): a selector that stopped calling
+    # it by that name would leave the check nothing to compare
+    want = (cfg["teacher"]["depth"], cfg["student"]["embed_dim"], cfg["student"]["embed_dim"])
+    if len(seen) != 3 or any(tuple(g.shape) != want for g, _ in seen):
+        raise AssertionError(f"mp_rank {cell}: caught {[tuple(g.shape) for g, _ in seen]} "
+                             f"from three steps, want three {want}")
+    torch.cuda.synchronize()
+    del prog, feed
+    torch.cuda.empty_cache()
+    return seen
+
+
+def mp_rank_phase(dev, seed: int = 20) -> dict:
+    """Phase 5f: the MP-rank kernel on planted covariances (designed and
+    spiked) and on the cells' own teacher Grams, against the plain version
+    on the card and the float64 oracle; then `tools/time_mp_rank.py` (the kernel's device time beside the plain
+    version's replayed graph and `eigvalsh`)."""
+    import torch
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.spectral.mp_rank_kernel import (
+        cluster_size,
+        mp_covariance,
+        mp_rank_raw_cuda,
+    )
+    from basd_tpu_torch.spectral.reference import marchenko_pastur_rank_np
+    from basd_tpu_torch.spectral.tridiag import householder_tridiag, mp_rank_sturm
+    from basd_tpu_torch.tools import time_mp_rank
+
+    t_phase = time.perf_counter()
+    kernels.library("mp_rank")
+    readings = {"cases": {}}
+
+    def compare(what, gram, m, oracle_eigs):
+        """Kernel against plain (and the oracle's float64 eigenvalues of
+        the same covariances): its reading, or raise."""
+        n = gram.shape[-1]
+        cov = mp_covariance(gram, m)
+        want = mp_rank_sturm(cov, m).cpu()
+        diag_p, off_p = householder_tridiag(cov)
+        ranks, diag, off2 = mp_rank_raw_cuda(gram, m)
+        ranks = ranks.cpu()
+        diag64, off64 = householder_tridiag_np(cov.double().cpu().numpy())
+        scale = float(np.abs(diag64).max())
+
+        def dist(d, o2):
+            return (float(np.abs(d.double().cpu().numpy() - diag64).max()) / scale,
+                    float(np.abs(o2.double().cpu().numpy() - off64 ** 2).max()) / scale ** 2)
+
+        kernel_err, plain_err = dist(diag, off2), dist(diag_p, off_p * off_p)
+        tridiag_ok = all(e <= tol for errs in (kernel_err, plain_err)
+                         for e, tol in zip(errs, MP_TRIDIAG_RTOL))
+        oracle, edges = [], []
+        for w in oracle_eigs:
+            lam = float(np.median(w)) * (1 + (n / m) ** 0.5) ** 2
+            oracle.append(int((w > lam).sum()))
+            edges.append(float(np.abs(w / lam - 1.0).min()))
+        row = dict(ranks=ranks.tolist(), plain=want.tolist(), oracle=oracle,
+                   cluster=cluster_size(n), kernel_vs_f64=kernel_err, plain_vs_f64=plain_err,
+                   kernel_vs_plain=((diag - diag_p).abs().amax().item() / scale,
+                                    (off2 - off_p * off_p).abs().amax().item() / scale ** 2),
+                   nearest_edge_rel=edges)
+        readings["cases"][what] = row
+        # a rank off the oracle's only where an eigenvalue sits at the edge
+        off_oracle = [i for i, (r, o) in enumerate(zip(row["ranks"], oracle)) if r != o]
+        ok = (torch.equal(ranks, want) and tridiag_ok
+              and all(edges[i] <= MP_EDGE_RTOL for i in off_oracle))
+        print(f"mp_rank {what}: cluster {row['cluster']}, ranks "
+              f"{'equal' if torch.equal(ranks, want) else 'DIFFER'} to the plain version's, "
+              f"{len(off_oracle)} off the oracle's (nearest eigenvalue {min(edges):.3g} of "
+              f"the edge); from the float64 reduction diag, off^2: kernel "
+              f"{kernel_err[0]:.3g}, {kernel_err[1]:.3g}, plain {plain_err[0]:.3g}, "
+              f"{plain_err[1]:.3g}", flush=True)
+        if not ok:
+            raise AssertionError(f"mp_rank {what}: {row}")
+
+    rng = np.random.default_rng(seed)
+    for spiked in (False, True):
+        for b, n in MP_PLANTED:
+            m = 4 * n
+            x, planted = planted_mp_features(rng, b, n, m, spiked)
+            gram = torch.from_numpy(np.einsum("bmi,bmj->bij", x, x).astype(np.float32)).to(dev)
+            eigs = [np.linalg.eigvalsh(f.T @ f / m) for f in x]
+            oracle = [marchenko_pastur_rank_np(f) for f in x]
+            if not spiked and oracle != planted:
+                raise AssertionError(f"mp_rank planted {b, n}: oracle {oracle}, planted {planted}")
+            compare(f"{'spiked' if spiked else 'designed'} ({b}, {n}, {n}) m {m}", gram, m,
+                    eigs)
+    for i, cell in enumerate(MP_CELLS):
+        for step, (gram, m) in enumerate(cell_teacher_grams(cell, seed + i, dev)):
+            cov = gram.double().cpu().numpy() / m
+            eigs = [np.linalg.eigvalsh((c + c.T) * 0.5) for c in cov]
+            compare(f"{cell} step {step} {tuple(gram.shape)} m {m}", gram.contiguous(), m, eigs)
+    readings["timing"] = time_mp_rank.main()
+    readings["phase_s"] = time.perf_counter() - t_phase
+    print(f"mp_rank: phase {readings['phase_s']:.1f} s", flush=True)
+    return readings
+
+
+def mp_rank_check() -> int:
+    """Phase 5f alone, a few minutes on one card: the kernels built and
+    `mp_rank_phase`; its readings as JSON into MP_RANK_JSON, then the
+    card's name and power limit. Run it
+    as `python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.mp_rank_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(kernels.build_all().get("mp_rank", ""), flush=True)  # registers, spills
+    dev = torch.device("cuda", 0)
+    readings = mp_rank_phase(dev)
+    os.makedirs(os.path.dirname(MP_RANK_JSON), exist_ok=True)
+    with open(MP_RANK_JSON, "w") as f:
+        json.dump(readings, f)
+    print(card_line(dev))
+    return 0
+
+
 M7_OUT = "chiprun_out/m7"
+MP_RANK_JSON = os.path.join(os.path.dirname(M7_OUT), "mp_rank.json")  # phase 5f's readings
 # phase 8's run: `python -m basd_tpu_torch.train` as a user runs it, at
 # Table-3 width on 1,024 synthetic images, one epoch of 8 steps, `latest`
 # every 4; the arch_overrides keep the student at DeiT-Tiny width (a random
@@ -859,12 +1096,13 @@ def trainer_phase(dev, env, bare_step_median_ms: float | None) -> dict:
     eval_batches = -(-128 // cfg.data.batch_size)  # the 128-image test split
     # K1 in every student block of each forward outside the train steps: the
     # per-epoch and the final evaluation, the efficiency loop; 12 in the
-    # teacher's forward of the K calibration; none for the FLOP count (a CPU
-    # copy of the model)
+    # teacher's forward of the K calibration and one MP-rank launch in its
+    # ranks; none for the FLOP count (a CPU copy of the model)
     eval_forwards = 2 * eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches
     per_step = per_step_launches(scfg, trainer.teacher, trainer.extraction_points, k, True)
     want = {name: per_step[name] * steps for name in per_step}
     want["attention_fwd"] += scfg.depth * eval_forwards + teacher_layers(trainer.teacher)
+    want["mp_rank"] += 1
     # the trainer's kernel start-up check: this process's first Trainer
     check_launches = trainer.kernel_check_launches
     want = {name: n + check_launches[name] for name, n in want.items()}
@@ -1269,6 +1507,7 @@ def main() -> int:
     from basd_tpu_torch.tools import (
         probe_attn_internals,
         probe_jacobi_sweeps,
+        time_mp_rank,
         time_warp,
         tune_spectral,
     )
@@ -1316,14 +1555,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
     # the kernels' start-up check as a user runs it alone: one PASS line per
-    # kernel of the train path (K1, K2, K4, K3 at tiny shapes against their
-    # plain versions) in a process of its own
+    # kernel of the train path (K1, K2, K4, K3, the MP rank at tiny shapes
+    # against their plain versions) in a process of its own
     env = package_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.tools.smoke_kernels"],
                           capture_output=True, text=True, timeout=300, env=env)
     passes = [line for line in proc.stdout.splitlines() if line.startswith("PASS ")]
-    if proc.returncode != 0 or len(passes) != 4 or "ALL PASS" not in proc.stdout:
+    if proc.returncode != 0 or len(passes) != 5 or "ALL PASS" not in proc.stdout:
         raise AssertionError(f"smoke_kernels exited {proc.returncode}:\n{proc.stdout}"
                              f"\n{proc.stderr[-4000:]}")
     print(f"smoke_kernels: {time.perf_counter() - t0:.1f} s, {'; '.join(passes)}")
@@ -2112,7 +2351,7 @@ def main() -> int:
     # Table-3's launches per step, as every earlier run counted them
     table3 = {"attention_fwd": 24, "attention_bwd": 12,
               "jacobi_eigh": 3 if k3_on_path else 0, "warp": 1,
-              "jacobi_eigvals": 0, "attn_probe": 0}
+              "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1}
     if per_step_launches(cfg, teacher, points, k_cal, True) != table3:
         raise AssertionError(f"Table-3 launches per step "
                              f"{per_step_launches(cfg, teacher, points, k_cal, True)}")
@@ -2293,6 +2532,35 @@ def main() -> int:
         print(f"graph: {label} route={route}: {reason} (K={t['k']})")
         graph[f"{label.lower().replace('-', '')}_route"] = t["route"]
     print(f"graph: {card}")
+
+    # ---- 5f. the MP-rank kernel against its plain version and the oracle ----
+    # in a process of its own: staging the cells' programs runs the kernels'
+    # start-up check, which phase 8 expects this process's first Trainer to run
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.mp_rank_check())"],
+        capture_output=True, text=True, timeout=900, env=package_env())
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"mp_rank_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(MP_RANK_JSON) as f:
+        mp = json.load(f)
+    timing = mp["timing"]["shapes"]
+    report["mp_rank"] = {}
+    for bsz, nn_, m_ in time_mp_rank.PLAIN_SHAPES:
+        kern = next(r for name, r in timing.items()
+                    if name.startswith(f"kernel ({bsz}, {nn_}, {nn_})"))
+        # one read of the Grams and the outputs' writes; about 4/3 n^3 FLOPs a
+        # matrix: at each step 2 j^2 for A v on the j x j trailing block and
+        # 2 j^2 for the symmetric rank-2 update of its one triangle
+        t_bytes = 4 * bsz * (nn_ * nn_ + 2 * nn_) / HBM_BYTES_PER_S * 1e3
+        t_ops = bsz * sum(4 * j * j for j in range(2, nn_)) / peak_flops[f32] * 1e3
+        report["mp_rank"][f"teacher Grams ({bsz}, {nn_}, {nn_})"] = dict(
+            ms=kern["ms"], device_ms=kern["ms"], cluster=kern["cluster"],
+            plain_ms=timing[f"plain ({bsz}, {nn_}, {nn_}) m {m_}"]["ms"],
+            library_ms=timing[f"eigvalsh ({bsz}, {nn_}, {nn_})"]["ms"],
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            max_abs_err=max(abs(a - b) for case in mp["cases"].values()
+                            for a, b in zip(case["ranks"], case["plain"])))
 
     # ---- 6. reference on a small input: card vs CPU plain versions ----
     # The card's and the CPU's generators give different numbers, so both
@@ -2691,6 +2959,7 @@ def main() -> int:
             want["attention_fwd"] += m7_student.depth * (
                 eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches) \
                 + teacher_layers(trainer.teacher)
+            want["mp_rank"] += 1
         if (row["subspace_k"] != k9 or row["steps"] != 8 or row["launches"] != want
                 or row["kernel_check_launches"] != KERNEL_CHECK_LAUNCHES
                 or row["state_digest"] != summaries[0]["state_digest"]
@@ -2949,6 +3218,9 @@ def main() -> int:
         "jacobi_eigvals": ("basd_tpu_torch/csrc/jacobi_eigh.cu",
                            "basd_tpu/spectral/pallas_jacobi.py:69",
                            "tune_spectral covariances (12, 192, 192)"),
+        "mp_rank": ("basd_tpu_torch/csrc/mp_rank.cu",
+                    "none (basd_tpu/spectral/tridiag.py's fori_loops, in XLA's program)",
+                    "teacher Grams (12, 192, 192)"),
         "attn_probe": ("basd_tpu_torch/csrc/attn_probe.cu",
                        "tools/probe_attn_internals.py:25",
                        "full (256, 12, 257, 64)"),
@@ -2988,6 +3260,7 @@ def main() -> int:
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "m7": m7, "m8": m8, "oracle": oracle, "graph": graph,
+                      "mp_rank": mp,
                       "bench": benches,
                       "measure_tools": measured_tools, "measure_s": measure_s,
                       "last_tools": last_tools, "entry_rel_err": entry_err,
