@@ -76,6 +76,10 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # gram, ranks, diag, off2, batch, n, cluster, m, edge, stream
         "basd_mp_rank": [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
     },
+    "swiglu": {
+        # x, out, rows, g, is_bf16, stream
+        "basd_swiglu_gate": [_P] * 2 + [_L] + [_I] * 2 + [_P],
+    },
     "spans": {
         # flag, ring, slot, boundary, width, steps, closing, stream: the
         # train step's span stamps (utils/spans.py), no ported kernel and
@@ -92,6 +96,7 @@ LAUNCHES: dict[str, int] = {
     "jacobi_eigvals": 0,
     "attn_probe": 0,
     "mp_rank": 0,
+    "swiglu_gate": 0,
 }
 
 # the open tallies of `utils.profiling.step_cost_analysis`

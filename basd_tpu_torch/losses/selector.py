@@ -18,6 +18,14 @@ Dtype contract: teacher tokens are consumed in their compute dtype (the
 projection upcasts the bf16-rounded operands and multiplies in fp32); the
 mixed teacher tokens are stored back in the teacher dtype; everything else
 is fp32.
+
+Memory: the projection and the mix each multiply an fp32 copy of the whole
+teacher token stack, and the mix's product keeps its copy for the
+backward. Where that copy would pass F32_COPY_BYTES (DINOv2 ViT-g's 40
+layers at batch 256: 16.1 GB), both take the stack in slices whose copies
+stay under it, and the mix keeps no copy: its backward upcasts the stored
+tokens again, a slice at a time (`_MixSlices`). Smaller stacks (Table-1's
+ViT-L at 6.4 GB, Table-3's) take one product as before.
 """
 
 from __future__ import annotations
@@ -76,10 +84,66 @@ def temperatures(state: SelectorState) -> torch.Tensor:
     return F.softplus(state.log_temperatures)
 
 
+# the largest fp32 copy of the teacher token stack the selector makes in
+# one piece
+F32_COPY_BYTES = 8 << 30
+
+
+def _slices(n: int, row_bytes: int) -> list[slice]:
+    """Slices of n rows whose fp32 copies (row_bytes each) stay within
+    F32_COPY_BYTES; one slice where the whole fits."""
+    pieces = -(-n * row_bytes // F32_COPY_BYTES)
+    step = -(-n // max(pieces, 1))
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
 def _project(tokens: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """(L, M, D) tokens x (E, D) projection -> (L, M, E) fp32, from operands
-    rounded to the tokens' dtype."""
-    return tokens.float() @ proj.to(tokens.dtype).float().T
+    rounded to the tokens' dtype; the tokens' fp32 copy made a slice of
+    layers at a time where the whole would pass F32_COPY_BYTES."""
+    p = proj.to(tokens.dtype).float().T
+    l, m, d = tokens.shape
+    parts = _slices(l, 4 * m * d)
+    if len(parts) == 1:
+        return tokens.float() @ p
+    out = torch.empty((l, m, p.shape[1]), dtype=torch.float32, device=tokens.device)
+    for part in parts:
+        torch.matmul(tokens[part].float(), p, out=out[part])
+    return out
+
+
+class _MixSlices(torch.autograd.Function):
+    """weights (P, L) x tokens (L, C) in fp32 from the tokens' stored dtype,
+    the columns taken in slices whose fp32 copies stay under
+    F32_COPY_BYTES; the weights' gradient is made from the stored tokens by
+    the same slices, so no fp32 copy is kept for the backward (the tokens
+    carry no gradient)."""
+
+    @staticmethod
+    def forward(ctx, weights, tokens):
+        ctx.save_for_backward(weights, tokens)
+        out = torch.empty((weights.shape[0], tokens.shape[1]), dtype=torch.float32,
+                          device=tokens.device)
+        for part in _slices(tokens.shape[1], 4 * tokens.shape[0]):
+            out[:, part] = weights @ tokens[:, part].float()
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        weights, tokens = ctx.saved_tensors
+        grad_w = torch.zeros_like(weights)
+        for part in _slices(tokens.shape[1], 4 * tokens.shape[0]):
+            grad_w += grad[:, part] @ tokens[:, part].float().T
+        return grad_w, None
+
+
+def _mix(weights: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """weights (P, L) x tokens (L, C) -> (P, C) fp32 from the tokens'
+    stored dtype: one product where the tokens' fp32 copy fits
+    F32_COPY_BYTES, else `_MixSlices`."""
+    if tokens.numel() * 4 <= F32_COPY_BYTES:
+        return weights @ tokens.float()
+    return _MixSlices.apply(weights, tokens)
 
 
 def calibrate_subspace_k(
@@ -189,9 +253,8 @@ def select_and_mix(
     tau = temperatures(state)
     weights = torch.softmax(-d2 / tau[:, None], dim=-1)  # (P, L)
 
-    mixed_tokens = (
-        weights @ teacher_tokens.float().reshape(l, -1)
-    ).reshape(p, b, n_t, d_t).to(teacher_tokens.dtype)
+    mixed_tokens = _mix(weights, teacher_tokens.reshape(l, -1)).reshape(
+        p, b, n_t, d_t).to(teacher_tokens.dtype)
     mixed_importance = (
         weights @ teacher_importance.float().reshape(l, -1)
     ).reshape(p, b, n_t)

@@ -27,6 +27,9 @@ class ModelSpec:
     norm_std: tuple[float, float, float] = (0.229, 0.224, 0.225)
     # LayerScale gamma init (DINOv2 ViTs: 1e-5); None = plain ViT
     layer_scale_init: float | None = None
+    # a ViT block's MLP: "gelu" (fc2(gelu(fc1 x))) or "swiglu" (DINOv2's
+    # ViT-g: fc1's packed output a | b, fc2(silu(a) * b))
+    ffn: str = "gelu"
 
     def num_tokens(self, img_size: int) -> int:
         """Patch tokens (CLS excluded), reference `teacher.py:94`."""
@@ -61,6 +64,14 @@ _VIT_PRESETS: dict[str, dict] = {
         embed_dim=1024, depth=24, num_heads=16, patch_size=14,
         layer_scale_init=1e-5,
     ),
+    # DINOv2's largest backbone (`dinov2/hub/backbones.py:dinov2_vitg14`,
+    # arch vit_giant2, ffn_layer "swiglufused"; timm's
+    # vit_giant_patch14_dinov2): a SwiGLU MLP whose packed fc1 is
+    # int(1536 * 5.33334) = 8192 wide, fc2 4096
+    "dinov2_vitg14": dict(
+        embed_dim=1536, depth=40, num_heads=24, patch_size=14,
+        layer_scale_init=1e-5, mlp_ratio=5.33334, ffn="swiglu",
+    ),
     # tiny configs for tests / smoke runs
     "vit_micro_patch4": dict(embed_dim=64, depth=4, num_heads=2, patch_size=4),
     "vit_mini_patch4": dict(embed_dim=96, depth=6, num_heads=3, patch_size=4),
@@ -68,6 +79,11 @@ _VIT_PRESETS: dict[str, dict] = {
     "dinov2_micro_patch4": dict(
         embed_dim=64, depth=4, num_heads=2, patch_size=4,
         layer_scale_init=1e-5,
+    ),
+    # its SwiGLU twin (packed width int(64 * 5.3125) = 340, g = 170)
+    "dinov2_swiglu_micro_patch4": dict(
+        embed_dim=64, depth=4, num_heads=2, patch_size=4,
+        layer_scale_init=1e-5, mlp_ratio=5.3125, ffn="swiglu",
     ),
 }
 
@@ -100,11 +116,12 @@ def resolve_preset(name: str) -> ModelSpec:
             embed_dim=p["embed_dim"],
             depth=p["depth"],
             num_heads=p["num_heads"],
-            mlp_ratio=4.0,
+            mlp_ratio=p.get("mlp_ratio", 4.0),
             has_cls_token=True,
             feature_format="token",
             patch_size=p["patch_size"],
             layer_scale_init=p.get("layer_scale_init"),
+            ffn=p.get("ffn", "gelu"),
         )
     if name in _CNN_PRESETS:
         p = _CNN_PRESETS[name]

@@ -42,6 +42,7 @@ def build_teacher_module(
             drop_path_rate=0.0,
             has_cls_token=spec.has_cls_token,
             layer_scale_init=spec.layer_scale_init,
+            ffn=spec.ffn,
             dtype=dtype,
         )
         return VisionTransformer(cfg, capture_layers=tuple(range(spec.depth)))

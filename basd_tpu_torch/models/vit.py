@@ -10,9 +10,12 @@ and the classifier head in fp32. Images are (B, H, W, 3), as in the JAX
 package. Attention of a ViT with a CLS token inside the kernel gate goes
 through `ops.attention.fused_attention` (the hand-written kernels on the
 card); a ViT without one takes the einsum chain, whose normalized attention
-its importance needs. `ViTConfig.remat` recomputes each block in the
-backward (`torch.utils.checkpoint`), with the block's drop-path draws made
-before the checkpointed call so the recomputation sees the same masks.
+its importance needs. A block's MLP is `ViTConfig.ffn`'s: the GELU `Mlp`,
+or `SwiGLU` (DINOv2's ViT-g; its gate `silu(a) * b` is the hand-written
+kernel of `ops.activations.swiglu_gate` on the card). `ViTConfig.remat`
+recomputes each block in the backward (`torch.utils.checkpoint`), with the
+block's drop-path draws made before the checkpointed call so the
+recomputation sees the same masks.
 
 Tensor parallelism (a `parallel.mesh.Mesh` with a model axis, built by
 `parallel.sharding_rules.shard_module`): each block's qkv and fc1 are
@@ -36,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from basd_tpu_torch.ops.activations import gelu
+from basd_tpu_torch.ops.activations import gelu, swiglu_gate
 from basd_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 from basd_tpu_torch.parallel.sharding_rules import attention_split
 from basd_tpu_torch.ops.attention import (
@@ -65,6 +68,8 @@ class ViTConfig:
     has_cls_token: bool = True
     # DINOv2 LayerScale gamma init (1e-5); None = plain ViT
     layer_scale_init: float | None = None
+    # the blocks' MLP: "gelu" (`Mlp`) or "swiglu" (`SwiGLU`)
+    ffn: str = "gelu"
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
 
@@ -203,6 +208,28 @@ class Mlp(nn.Module):
         return _row_linear(h, self.fc2, dtype, self.mesh)
 
 
+class SwiGLU(nn.Module):
+    """The SwiGLU MLP of DINOv2's ViT-g under timm's `SwiGLUPacked` keys:
+    fc1 (2g, D) packs both halves, fc2 (D, g); fc2(silu(a) * b) of fc1's
+    output a | b, g = packed_hidden // 2 (`ops.activations.swiglu_gate`,
+    the kernel on the card). Not split under tensor parallelism."""
+
+    def __init__(self, dim: int, packed_hidden: int, mesh=None):
+        super().__init__()
+        if mesh is not None and mesh.model > 1:
+            raise ValueError(f"a SwiGLU MLP does not split over model={mesh.model}: "
+                             "tensor parallelism takes GELU MLPs only")
+        g = packed_hidden // 2
+        self.fc1 = nn.Linear(dim, 2 * g)
+        self.fc2 = nn.Linear(g, dim)
+
+    def forward(self, x, dtype):
+        return _linear(swiglu_gate(_linear(x, self.fc1, dtype)), self.fc2, dtype)
+
+
+_FFN = {"gelu": Mlp, "swiglu": SwiGLU}
+
+
 class LayerScale(nn.Module):
     """DINOv2 naming: module `ls1`/`ls2`, parameter `gamma`."""
 
@@ -222,7 +249,9 @@ class Block(nn.Module):
         self.norm1 = nn.LayerNorm(d, eps=_LN_EPS)
         self.attn = Attention(d, cfg.num_heads, cfg.has_cls_token, mesh)
         self.norm2 = nn.LayerNorm(d, eps=_LN_EPS)
-        self.mlp = Mlp(d, int(d * cfg.mlp_ratio), mesh)
+        if cfg.ffn not in _FFN:
+            raise ValueError(f"unknown ffn {cfg.ffn!r}; known: {sorted(_FFN)}")
+        self.mlp = _FFN[cfg.ffn](d, int(d * cfg.mlp_ratio), mesh)
         if cfg.layer_scale_init is not None:
             self.ls1 = LayerScale(d, cfg.layer_scale_init)
             self.ls2 = LayerScale(d, cfg.layer_scale_init)

@@ -1,12 +1,81 @@
-"""Exact (erf) GELU with the JAX package's precision contract: math in
-fp32, result in the input dtype. (`basd_tpu/ops/activations.py` computes
-the same function through tanh, a TPU lowering device.)"""
+"""Activations with the JAX package's precision contract: math in fp32,
+result in the input dtype.
+
+`gelu` is the exact (erf) GELU (`basd_tpu/ops/activations.py` computes the
+same function through tanh, a TPU lowering device). `swiglu_gate` is the
+gate of a SwiGLU MLP (DINOv2's ViT-g, timm's `SwiGLUPacked`): the packed
+fc1 output's halves a | b give silu(a) * b. A CUDA tensor launches the
+hand-written kernel (`csrc/swiglu.cu`), one launch a call, or raises; a
+CPU tensor takes the plain version, the same fp32 math as torch ops. The
+kernel has no backward: the SwiGLU MLP runs in frozen teachers.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from basd_tpu_torch import kernels
+
+_DTYPES = (torch.bfloat16, torch.float32)
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float()).to(x.dtype)
+
+
+def swiglu_gate_plain(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2g) -> (..., g): silu(a) * b in fp32 over the halves a | b of
+    the last axis, rounded once to x's dtype."""
+    g = x.shape[-1] // 2
+    a, b = x[..., :g].float(), x[..., g:2 * g].float()
+    return (F.silu(a) * b).to(x.dtype)
+
+
+def swiglu_gate_cost(rows: int, g: int, element_size: int) -> tuple[int, int, int]:
+    """(FLOPs, transcendentals, bytes) of the gate over (rows, 2g): a
+    negation, an add, a division and a product an output and one exp; a
+    and b read, the output written."""
+    return 4 * rows * g, rows * g, 3 * rows * g * element_size
+
+
+def gate_route(x: torch.Tensor, out: torch.Tensor) -> str:
+    """The kernel's route (`launch` in the source): "vec" where g is a
+    multiple of a 16-byte vector and both pointers are 16-byte aligned,
+    else "scalar"."""
+    per = 16 // x.element_size()
+    g = out.shape[-1]
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return "vec" if g % per == 0 and aligned else "scalar"
+
+
+def swiglu_gate_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The kernel on contiguous (..., 2g) bf16 or fp32 rows on the card."""
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"swiglu_gate kernel takes bf16 or fp32, got {x.dtype}")
+    if not x.is_contiguous() or x.shape[-1] % 2:
+        raise ValueError("swiglu_gate kernel takes contiguous rows of even width 2g")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("swiglu_gate kernel has no backward: the SwiGLU MLP runs in "
+                         "frozen teachers")
+    g = x.shape[-1] // 2
+    rows = x.numel() // max(2 * g, 1)
+    out = torch.empty(x.shape[:-1] + (g,), dtype=x.dtype, device=x.device)
+    if rows == 0 or g == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = kernels.library("swiglu").basd_swiglu_gate(
+        x.data_ptr(), out.data_ptr(), rows, g, int(x.dtype == torch.bfloat16), stream)
+    kernels.check(status, f"swiglu_gate ({rows} x {2 * g} {x.dtype})")
+    kernels.LAUNCHES["swiglu_gate"] += 1
+    kernels.add_cost(*swiglu_gate_cost(rows, g, x.element_size()))
+    return out
+
+
+def swiglu_gate(x: torch.Tensor) -> torch.Tensor:
+    """silu(x[..., :g]) * x[..., g:] of (..., 2g) rows, in fp32, rounded once
+    to x's dtype: the kernel on a CUDA tensor, the plain version on the
+    CPU."""
+    if x.device.type == "cuda":
+        return swiglu_gate_cuda(x)
+    return swiglu_gate_plain(x)

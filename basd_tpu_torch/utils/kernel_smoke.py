@@ -5,8 +5,8 @@ Before a long run stages data and steps, `validate_kernel_dispatches`
 runs each kernel once at a tiny real shape on the card and holds its
 result against the kernel's plain torch version on the same inputs:
 attention forward (K1) and backward (K2), the TrivialAugment warp (K4),
-the Jacobi eigh (K3, its ping-pong route) and the MP rank (its one-CTA
-route). A kernel that fails to build, to launch or to agree raises a
+the Jacobi eigh (K3, its ping-pong route), the MP rank (its one-CTA
+route) and the SwiGLU gate (both routes). A kernel that fails to build, to launch or to agree raises a
 `RuntimeError` that names it and carries the original error. Nothing is switched: the port has no fallback, so a
 run that cannot use a kernel stops here rather than inside its first step.
 On the CPU the plain versions run, so there is nothing to check.
@@ -29,6 +29,9 @@ from basd_tpu_torch import kernels
 # every operation as their plain versions do, so those are held bit for bit,
 # as are the MP rank's integer ranks
 BF16_ATTENTION_TOL = 2e-2
+# the SwiGLU gate rounds once from fp32: within one unit in the last place
+# of the output dtype, relative to each value
+GATE_ULP = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-23}
 
 _VALIDATED: set[str] = set()
 
@@ -135,6 +138,28 @@ def _mp_rank(device: torch.device) -> str:
     return _bit_for_bit([(got, mp_rank_sturm(mp_covariance(gram, 48), 48))], "mp_rank")
 
 
+def _swiglu_gate(device: torch.device) -> str:
+    """The gate on its vec route (bf16, g = 24) and its scalar route (fp32,
+    g = 13), each against the plain version on the same rows."""
+    from basd_tpu_torch.ops.activations import swiglu_gate, swiglu_gate_plain
+
+    rng = np.random.default_rng(0)
+    pairs = []
+    for rows, g, dtype in ((5, 24, torch.bfloat16), (3, 13, torch.float32)):
+        x = torch.from_numpy(3.0 * rng.standard_normal((rows, 2 * g)).astype(np.float32))
+        x = x.to(device=device, dtype=dtype)
+        pairs.append((swiglu_gate(x), swiglu_gate_plain(x)))
+    if all(torch.equal(got, want) for got, want in pairs):
+        return "bit for bit"
+    for got, want in pairs:
+        ulp = GATE_ULP[want.dtype]
+        gap = (got.float() - want.float()).abs()
+        if not bool((gap <= ulp * want.float().abs() + 1e-30).all()):
+            raise AssertionError(f"swiglu_gate: max err {gap.max().item():.3g} against "
+                                 f"the plain version ({want.dtype}: one ulp allowed)")
+    return "within one ulp"
+
+
 # (name, check): each check launches its kernels on `device` and returns
 # what it read, or raises
 KERNEL_CHECKS = (
@@ -143,6 +168,7 @@ KERNEL_CHECKS = (
     ("warp", _warp),
     ("jacobi", _jacobi),
     ("mp_rank", _mp_rank),
+    ("swiglu_gate", _swiglu_gate),
 )
 
 

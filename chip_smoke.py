@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the exit code is not 0:
   2. build: every kernel of the port from basd_tpu_torch/csrc (nvcc,
      sm_90a, one process per source, all at once); `python -m
      basd_tpu_torch.tools.smoke_kernels` in a process of its own, exit 0
-     and five PASS lines (K1, K2, K4, K3 and the MP rank once at a tiny
-     shape against their plain versions: the trainer's start-up check); the
+     and six PASS lines (K1, K2, K4, K3, the MP rank and the SwiGLU gate
+     once at a tiny shape against their plain versions: the trainer's
+     start-up check); the
      HMMA (tensor-core)
      instructions in each bf16 attention kernel's and each attention-probe
      kernel's SASS (cuobjdump), none allowed to have none; the instruction
@@ -98,6 +99,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      three (eager) steps; its tridiagonal and the plain version's within
      MP_TRIDIAG_RTOL of the float64 reduction; then the kernel's device
      time beside the plain version's replayed graph and `eigvalsh`
+  5g. the SwiGLU gate and DINOv2 ViT-g (`swiglu_check()` in a process of
+     its own): the gate kernel against its plain version at the ViT-g
+     teacher's (65,792, 8,192) bf16, both routes and g odd, timed beside
+     `F.silu(a) * b` and its bound; one ViT-g teacher forward at batch 256
+     (`load_teacher("dinov2_vitg14")`, LayerScale 1) against the plain
+     float32 reference (`basd_tpu_torch/reference/vit_swiglu.py`) computed
+     in blocks of the batch; and the Table-1 step with the ViT-g teacher
+     through `make_train_step`: its route, 40 gate launches a replay, its
+     peak memory and step time
      (`tools/time_mp_rank.py`);
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
@@ -201,9 +211,11 @@ MEASURE_ARGS = {"profile_step": ["--n", "10"], "profile_step_imagenet": ["--n", 
 BF16_ULPS_8 = 8 * 2.0**-8
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
-# in the backward check's forward, K2, K4, K3, the MP-rank kernel
+# in the backward check's forward, K2, K4, K3, the MP-rank kernel, the
+# SwiGLU gate on each of its two routes
 KERNEL_CHECK_LAUNCHES = {"attention_fwd": 2, "attention_bwd": 1, "jacobi_eigh": 1,
-                         "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1}
+                         "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1,
+                         "swiglu_gate": 2}
 
 
 def table1_inputs(dev):
@@ -566,7 +578,7 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     the selector's three eighs (teacher and student Rayleigh-Ritz, the
     principal angles) that the Jacobi gate takes, K4 once per augmented
     view, the MP-rank kernel once (the teacher layers' ranks at n = D_s)
-    inside its gate."""
+    inside its gate, the SwiGLU gate in every block of a SwiGLU teacher."""
     from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.ops import attention as attn
     from basd_tpu_torch.spectral.ops import use_jacobi, use_mp_kernel
@@ -583,7 +595,9 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
             "attention_bwd": student_blocks,
             "jacobi_eigh": sum(map(use_jacobi, selector_eigh_shapes(p, l, k))),
             "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0,
-            "mp_rank": int(use_mp_kernel(scfg.embed_dim))}
+            "mp_rank": int(use_mp_kernel(scfg.embed_dim)),
+            "swiglu_gate": tch.spec.depth if tch.spec.family == "vit"
+            and tch.spec.ffn == "swiglu" else 0}
 
 
 def stage_table3(dev) -> dict:
@@ -778,7 +792,7 @@ def graph_check() -> int:
     kernels.build_all()
     dev = torch.device("cuda", 0)
     per_step = {"attention_fwd": 24, "attention_bwd": 12, "jacobi_eigh": 3, "warp": 1,
-                "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1}
+                "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0}
     readings = graph_phase(dev, stage_table3(dev), per_step, MAIN_STEPS)
     print(json.dumps(readings))
     print(card_line(dev))
@@ -1002,6 +1016,242 @@ def mp_rank_check() -> int:
     with open(MP_RANK_JSON, "w") as f:
         json.dump(readings, f)
     print(card_line(dev))
+    return 0
+
+
+# phase 5g: the SwiGLU gate at the ViT-g teacher's shape (batch 256 x 257
+# tokens, g = 4096), the teacher forward's blocks for the float32
+# reference, and the bounds of the forward's check, each layer's tokens
+# against that layer's max |reference|: the port in float32 within 1e-4
+# (the same math in another order: K1's CUDA-core kernel, split qkv); in
+# bf16 within 0.25, the CLS importance within 5e-2: bf16's 2^-8 steps
+# compound through 40 residual blocks at LayerScale 1 (an H100 reads 1.8e-2
+# after block 1, rising steadily to 0.154 after block 40, and 1.5e-2 on the
+# importance)
+SWIGLU_JSON = os.path.join("chiprun_out", "swiglu.json")
+VITG_ROWS, VITG_G = 256 * 257, 4096
+VITG_REF_CHUNK = 16
+VITG_FP32_RTOL, VITG_BF16_RTOL, VITG_IMPORTANCE_ATOL = 1e-4, 0.25, 5e-2
+VITG_STEPS = 6
+VITG_SPAN_STEPS = 5
+
+
+def swiglu_gate_case(dev, rows: int, g: int, dtype, seed: int) -> dict:
+    """The gate kernel on seeded (rows, 2g) values against its plain
+    version (within one ulp of the output dtype, `kernel_smoke.GATE_ULP`),
+    timed by an event loop and by device time alone beside the plain
+    version and `F.silu(a) * b`, with its bound (3 rows g elements over the
+    memory bandwidth)."""
+    import torch
+    import torch.nn.functional as F
+
+    from basd_tpu_torch.ops.activations import gate_route, swiglu_gate, swiglu_gate_plain
+    from basd_tpu_torch.tools.timing import device_ms, kernel_ms
+    from basd_tpu_torch.utils.kernel_smoke import GATE_ULP
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (3.0 * torch.randn((rows, 2 * g), generator=gen, device=dev)).to(dtype)
+    got, want = swiglu_gate(x), swiglu_gate_plain(x)
+    gap = (got.float() - want.float()).abs()
+    over = int((gap > GATE_ULP[dtype] * want.float().abs()).sum())
+    if over:
+        raise AssertionError(f"swiglu_gate ({rows}, {2 * g}) {dtype}: {over} values more "
+                             f"than one ulp from the plain version, max err {gap.max():.3g}")
+    a, b = x[:, :g], x[:, g:]
+    bound_ms = 3 * rows * g * x.element_size() / HBM_BYTES_PER_S * 1e3
+    row = dict(route=gate_route(x, got), differing=int((got != want).sum()),
+               max_abs_err=float(gap.max()),
+               ms=device_ms(lambda: swiglu_gate(x), dev),
+               device_ms=kernel_ms(lambda: swiglu_gate(x), dev),
+               plain_ms=device_ms(lambda: swiglu_gate_plain(x), dev),
+               library_ms=device_ms(lambda: F.silu(a) * b, dev),
+               library_device_ms=kernel_ms(lambda: F.silu(a) * b, dev),
+               bound_ms=bound_ms, bound_by="bytes")
+    row["roofline_pct"] = 100.0 * bound_ms / row["device_ms"]
+    return row
+
+
+def vitg14_forward_check(dev, tch) -> dict:
+    """One forward of the ViT-g teacher at batch 256, in float32 and in the
+    teacher's bf16, against the plain float32 reference (TF32 off),
+    computed in blocks of VITG_REF_CHUNK images: each layer's largest token
+    gap over that layer's largest reference value, and the importance's
+    largest gap. The float32 forward (the same parameters in a module that
+    computes in float32) is held to VITG_FP32_RTOL, the bf16 one to
+    VITG_BF16_RTOL and VITG_IMPORTANCE_ATOL."""
+    import torch
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.models.teacher import build_teacher_module, extract_intermediates
+    from basd_tpu_torch.reference import vit_swiglu
+
+    spec = tch.spec
+    with torch.device("meta"):
+        fp32 = build_teacher_module(spec, tch.img_size, dtype=torch.float32)
+    fp32.load_state_dict(tch.module.state_dict(), assign=True)
+    fp32 = tch._replace(module=fp32.eval())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((256, tch.img_size, tch.img_size, 3), generator=gen, device=dev)
+    before = kernels.LAUNCHES["swiglu_gate"]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tokens, importance = extract_intermediates(tch, x)
+    torch.cuda.synchronize(dev)
+    forward_s = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["swiglu_gate"] - before
+    tokens32, importance32 = extract_intermediates(fp32, x)
+    weights = tch.module.state_dict()
+    depth = spec.depth
+    zeros = lambda: torch.zeros(depth, device=dev)
+    gap, gap32, scale = zeros(), zeros(), zeros()
+    imp_gap, imp_gap32 = 0.0, 0.0
+    for lo in range(0, x.shape[0], VITG_REF_CHUNK):
+        hi = lo + VITG_REF_CHUNK
+        with torch.no_grad():
+            ref_tok, ref_imp = vit_swiglu.forward(weights, x[lo:hi], patch_size=spec.patch_size,
+                                                  depth=depth, heads=spec.num_heads)
+        gap = torch.maximum(gap, (tokens[:, lo:hi].float() - ref_tok).abs().amax((1, 2, 3)))
+        gap32 = torch.maximum(gap32, (tokens32[:, lo:hi] - ref_tok).abs().amax((1, 2, 3)))
+        scale = torch.maximum(scale, ref_tok.abs().amax((1, 2, 3)))
+        imp_gap = max(imp_gap, float((importance[:, lo:hi] - ref_imp).abs().max()))
+        imp_gap32 = max(imp_gap32, float((importance32[:, lo:hi] - ref_imp).abs().max()))
+    rel, rel32 = (gap / scale).tolist(), (gap32 / scale).tolist()
+    out = dict(tokens_rel_by_layer=rel, tokens_rel=max(rel), importance_abs=imp_gap,
+               fp32_tokens_rel_by_layer=rel32, fp32_tokens_rel=max(rel32),
+               fp32_importance_abs=imp_gap32, gate_launches=launches, forward_s=forward_s,
+               tokens_shape=list(tokens.shape), layer_max=scale.tolist())
+    if (max(rel32) > VITG_FP32_RTOL or imp_gap32 > VITG_FP32_RTOL
+            or max(rel) > VITG_BF16_RTOL or imp_gap > VITG_IMPORTANCE_ATOL
+            or launches != depth or list(tokens.shape) != [depth, 256, 256, spec.embed_dim]):
+        raise AssertionError(f"ViT-g forward against the float32 reference: {out}; bounds "
+                             f"{VITG_FP32_RTOL} (float32), {VITG_BF16_RTOL} / "
+                             f"{VITG_IMPORTANCE_ATOL} (bf16), {depth} gates")
+    return out
+
+
+def vitg14_step_check(dev, tch) -> dict:
+    """The Table-1 step (ViT-S/16 student at 224 px, batch 256 from 256 px,
+    K = 96, augment, remat) with the ViT-g teacher through
+    `make_train_step`: its route, the launches of each call and of one
+    replay (`per_step_launches`: 40 gates), the step's peak memory, the
+    wall ms of the replays and the median of each stage's span over
+    VITG_SPAN_STEPS more replays (`step_fn.spans`, unprofiled)."""
+    import torch
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.losses import extraction_points, init_selector
+    from basd_tpu_torch.losses.selector import selector_k
+    from basd_tpu_torch.models import create_student
+    from basd_tpu_torch.training.train_step import make_train_step
+
+    points = extraction_points(12, 4)
+    student, scfg = create_student("vit_small_patch16", num_classes=1000, drop_path_rate=0.1,
+                                   img_size=224, capture_layers=points, remat=True, device=dev)
+    sel = init_selector(1, len(points), scfg.embed_dim, tch.spec.embed_dim, device=dev)
+    init_fn, step_fn = make_train_step(
+        student, tch, learning_rate=1e-3, weight_decay=0.05, warmup_steps=1000,
+        label_smoothing=0.001, img_size=224, crop_ratio=0.875,
+        teacher_stats=(tch.mean, tch.std),
+        dataset_stats=((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)), num_classes=1000,
+        subspace_k=None, augment=True)
+    state = init_fn(0, sel)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randint(0, 256, (256, 256, 256, 3), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 1000, (256,), generator=gen, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    calls, wall_ms = [], []
+    for _ in range(VITG_STEPS):
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, images, labels)
+        torch.cuda.synchronize(dev)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append({n: kernels.LAUNCHES[n] - before[n] for n in before})
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec = step_fn.spans
+    rec.on()
+    for _ in range(VITG_SPAN_STEPS):
+        state, _ = step_fn(state, images, labels)
+    rec.off()
+    by_name = {}
+    for sp in rec.read():
+        by_name.setdefault(sp.name, []).append((sp.end - sp.start) / 1e6)
+    span_ms = {name: float(np.median(v)) for name, v in by_name.items()}
+    k = selector_k(None, scfg.embed_dim, 256 * 196, 256 * 256)
+    want = per_step_launches(scfg, tch, points, k, True)
+    out = dict(route=step_fn.route, reason=step_fn.reason, k=k, per_step=want,
+               replay_launches=step_fn.launches, call_launches=calls,
+               launches={n: sum(c[n] for c in calls) for n in calls[0]},
+               wall_ms=wall_ms, replay_ms=float(np.median(wall_ms[2:])),
+               peak_gib=peak_gib, span_ms=span_ms,
+               loss=float(metrics["loss"]), mp_ranks=metrics["mp_ranks"].tolist())
+    if (step_fn.route != "graph" or step_fn.launches != want or want["swiglu_gate"] != 40
+            or any(c != want for c in calls[2:]) or not np.isfinite(out["loss"])):
+        raise AssertionError(f"ViT-g train step: {out}")
+    return out
+
+
+def swiglu_check() -> int:
+    """Phase 5g alone, a few minutes on one card: the kernels built, the
+    gate's cases, the ViT-g teacher forward and the ViT-g Table-1 step; its
+    readings as JSON into SWIGLU_JSON, then the card's name and power
+    limit. Run it as `python3 -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.swiglu_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+    from basd_tpu_torch.models import load_teacher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(kernels.build_all().get("swiglu", ""), flush=True)  # registers, spills
+    dev = torch.device("cuda", 0)
+    readings = {"gate": {}}
+    for rows, g, dtype in ((VITG_ROWS, VITG_G, torch.bfloat16), (VITG_ROWS, VITG_G, torch.float32),
+                           (4096, 170, torch.bfloat16), (4096, 4100, torch.bfloat16)):
+        case = f"({rows}, {2 * g}) {str(dtype).split('.')[-1]}"
+        row = swiglu_gate_case(dev, rows, g, dtype, seed=len(readings["gate"]))
+        readings["gate"][case] = row
+        print(f"kernel swiglu_gate {case}: route {row['route']}, {row['differing']} values "
+              f"differ from the plain version (max err {row['max_abs_err']:.3g}); ms "
+              f"{row['ms']:.4f} (device {row['device_ms']:.4f}), bound {row['bound_ms']:.4f} "
+              f"({row['roofline_pct']:.1f}%), plain {row['plain_ms']:.4f}, F.silu(a) * b "
+              f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f})", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tch = load_teacher("dinov2_vitg14", 224, seed=0, device=dev)
+    readings["load_teacher_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        for blk in tch.module.blocks:
+            blk.ls1.gamma.fill_(1.0)
+            blk.ls2.gamma.fill_(1.0)
+    readings["forward"] = vitg14_forward_check(dev, tch)
+    fwd = readings["forward"]
+    print(f"ViT-g forward at batch 256: {fwd['forward_s']:.3f} s; against the float32 "
+          f"reference, of each layer's max: float32 tokens {fwd['fp32_tokens_rel']:.3g} "
+          f"(bound {VITG_FP32_RTOL}), importance {fwd['fp32_importance_abs']:.3g}; bf16 "
+          f"tokens {fwd['tokens_rel']:.3g} (bound {VITG_BF16_RTOL}), importance "
+          f"{fwd['importance_abs']:.3g} (bound {VITG_IMPORTANCE_ATOL}); "
+          f"{fwd['gate_launches']} gates; teacher loaded in {readings['load_teacher_s']:.1f} s",
+          flush=True)
+    torch.cuda.empty_cache()
+    readings["step"] = vitg14_step_check(dev, tch)
+    step = readings["step"]
+    print(f"ViT-g Table-1 step: route {step['route']} ({step['reason']}); launches a replay "
+          f"{step['replay_launches']}; replays {step['replay_ms']:.1f} ms (wall, median); "
+          f"peak {step['peak_gib']:.2f} GiB; loss {step['loss']:.5f}; stage spans (median ms "
+          f"of {VITG_SPAN_STEPS} replays) {step['span_ms']}", flush=True)
+    readings["card"] = card_line(dev)
+    os.makedirs(os.path.dirname(SWIGLU_JSON), exist_ok=True)
+    with open(SWIGLU_JSON, "w") as f:
+        json.dump(readings, f)
+    print(readings["card"])
     return 0
 
 
@@ -1555,14 +1805,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
     # the kernels' start-up check as a user runs it alone: one PASS line per
-    # kernel of the train path (K1, K2, K4, K3, the MP rank at tiny shapes
-    # against their plain versions) in a process of its own
+    # kernel of the train path (K1, K2, K4, K3, the MP rank, the SwiGLU gate
+    # at tiny shapes against their plain versions) in a process of its own
     env = package_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.tools.smoke_kernels"],
                           capture_output=True, text=True, timeout=300, env=env)
     passes = [line for line in proc.stdout.splitlines() if line.startswith("PASS ")]
-    if proc.returncode != 0 or len(passes) != 5 or "ALL PASS" not in proc.stdout:
+    if proc.returncode != 0 or len(passes) != 6 or "ALL PASS" not in proc.stdout:
         raise AssertionError(f"smoke_kernels exited {proc.returncode}:\n{proc.stdout}"
                              f"\n{proc.stderr[-4000:]}")
     print(f"smoke_kernels: {time.perf_counter() - t0:.1f} s, {'; '.join(passes)}")
@@ -2351,7 +2601,7 @@ def main() -> int:
     # Table-3's launches per step, as every earlier run counted them
     table3 = {"attention_fwd": 24, "attention_bwd": 12,
               "jacobi_eigh": 3 if k3_on_path else 0, "warp": 1,
-              "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1}
+              "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0}
     if per_step_launches(cfg, teacher, points, k_cal, True) != table3:
         raise AssertionError(f"Table-3 launches per step "
                              f"{per_step_launches(cfg, teacher, points, k_cal, True)}")
@@ -2544,6 +2794,18 @@ def main() -> int:
         raise AssertionError(f"mp_rank_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     with open(MP_RANK_JSON) as f:
         mp = json.load(f)
+    # ---- 5g. the SwiGLU gate and the ViT-g teacher, in a process of its own ----
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.swiglu_check())"],
+        capture_output=True, text=True, timeout=1200, env=package_env())
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"swiglu_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(SWIGLU_JSON) as f:
+        swiglu = json.load(f)
+    report["swiglu_gate"] = {f"ViT-g teacher {case}": row
+                             for case, row in swiglu["gate"].items()}
+    path_launches["vitg14_step"] = swiglu["step"]["launches"]
     timing = mp["timing"]["shapes"]
     report["mp_rank"] = {}
     for bsz, nn_, m_ in time_mp_rank.PLAIN_SHAPES:
@@ -3224,11 +3486,14 @@ def main() -> int:
         "attn_probe": ("basd_tpu_torch/csrc/attn_probe.cu",
                        "tools/probe_attn_internals.py:25",
                        "full (256, 12, 257, 64)"),
+        "swiglu_gate": ("basd_tpu_torch/csrc/swiglu.cu",
+                        "none (the JAX package has no SwiGLU MLP)",
+                        f"ViT-g teacher ({VITG_ROWS}, {2 * VITG_G}) bfloat16"),
     }
     # each kernel's launches on the path it serves: the train step for
     # K1-K4, the spectral tuner for K5, the attention probe for K6
     own_path = {"jacobi_eigvals": "tune_spectral",
-                "attn_probe": "probe_attn_internals"}
+                "attn_probe": "probe_attn_internals", "swiglu_gate": "vitg14_step"}
     measured = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                 "bound_ms", "bound_by",
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
@@ -3260,7 +3525,7 @@ def main() -> int:
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "m7": m7, "m8": m8, "oracle": oracle, "graph": graph,
-                      "mp_rank": mp,
+                      "mp_rank": mp, "swiglu": swiglu,
                       "bench": benches,
                       "measure_tools": measured_tools, "measure_s": measure_s,
                       "last_tools": last_tools, "entry_rel_err": entry_err,

@@ -43,9 +43,14 @@ def test_config_files_are_byte_copies(name):
     assert (PORT_CONFIGS / name).read_bytes() == (JAX_CONFIGS / name).read_bytes()
 
 
+# the port's own experiments, beside the copies: teachers the JAX package
+# does not build
+PORT_ONLY = ["experiment/basd_imagenet_dinov2_vitg14.yaml"]
+
+
 def test_every_config_file_is_copied():
     port = sorted(p.relative_to(PORT_CONFIGS).as_posix() for p in PORT_CONFIGS.rglob("*.yaml"))
-    assert port == FILES and len(FILES) == 5
+    assert port == sorted(FILES + PORT_ONLY) and len(FILES) == 5
 
 
 @pytest.mark.parametrize("name", FILES)
