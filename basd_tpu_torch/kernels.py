@@ -80,6 +80,12 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # x, out, rows, g, is_bf16, stream
         "basd_swiglu_gate": [_P] * 2 + [_L] + [_I] * 2 + [_P],
     },
+    "gelu": {
+        # x, y, n, is_bf16, stream
+        "basd_gelu_fwd": [_P] * 2 + [_L, _I, _P],
+        # dy, x, dx, n, is_bf16, stream
+        "basd_gelu_bwd": [_P] * 3 + [_L, _I, _P],
+    },
     "spans": {
         # flag, ring, slot, boundary, width, steps, closing, stream: the
         # train step's span stamps (utils/spans.py), no ported kernel and
@@ -97,6 +103,8 @@ LAUNCHES: dict[str, int] = {
     "attn_probe": 0,
     "mp_rank": 0,
     "swiglu_gate": 0,
+    "gelu_fwd": 0,
+    "gelu_bwd": 0,
 }
 
 # the open tallies of `utils.profiling.step_cost_analysis`

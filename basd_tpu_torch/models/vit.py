@@ -10,8 +10,9 @@ and the classifier head in fp32. Images are (B, H, W, 3), as in the JAX
 package. Attention of a ViT with a CLS token inside the kernel gate goes
 through `ops.attention.fused_attention` (the hand-written kernels on the
 card); a ViT without one takes the einsum chain, whose normalized attention
-its importance needs. A block's MLP is `ViTConfig.ffn`'s: the GELU `Mlp`,
-or `SwiGLU` (DINOv2's ViT-g; its gate `silu(a) * b` is the hand-written
+its importance needs. A block's MLP is `ViTConfig.ffn`'s: the GELU `Mlp`
+(its erf GELU the kernels of `ops.activations.gelu` on the card, forward and
+backward), or `SwiGLU` (DINOv2's ViT-g; its gate `silu(a) * b` is the hand-written
 kernel of `ops.activations.swiglu_gate` on the card). `ViTConfig.remat`
 recomputes each block in the backward (`torch.utils.checkpoint`), with the
 block's drop-path draws made before the checkpointed call so the

@@ -109,6 +109,15 @@ Phases, in order; any failure raises and the exit code is not 0:
      through `make_train_step`: its route, 40 gate launches a replay, its
      peak memory and step time
      (`tools/time_mp_rank.py`);
+  5h. the erf GELU kernels (`gelu_check()` in a process of its own): the
+     forward bit for bit F.gelu(x.float()).to(x.dtype) and the backward
+     against the composite's autograd (the elements that differ counted,
+     at most one ulp of the dtype) at Table-1's teacher (65,792 x 4,096)
+     and student (50,432 x 1,536) MLP widths, Table-3's, in fp32, on a
+     tail of n % 8 = 7 and an unaligned view (the scalar route), each timed
+     beside the composite, torch's own GELU and its bound; then each
+     benchmark cell staged as the benchmark stages it, its GELU launches a
+     replay equal to `benchmark/costs/gelu.py`'s calls;
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
@@ -212,10 +221,10 @@ BF16_ULPS_8 = 8 * 2.0**-8
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
 # in the backward check's forward, K2, K4, K3, the MP-rank kernel, the
-# SwiGLU gate on each of its two routes
+# SwiGLU gate on each of its two routes; no GELU kernel
 KERNEL_CHECK_LAUNCHES = {"attention_fwd": 2, "attention_bwd": 1, "jacobi_eigh": 1,
                          "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1,
-                         "swiglu_gate": 2}
+                         "swiglu_gate": 2, "gelu_fwd": 0, "gelu_bwd": 0}
 
 
 def table1_inputs(dev):
@@ -562,12 +571,23 @@ KERNEL_NAMES = {name: r"void \(anonymous namespace\)::" + pattern + r"[<(]" for 
                  ("attention_bwd", r"attn_(bwd_)?dq_(mma|kernel)"),
                  ("jacobi_eigh", r"jacobi_(pingpong|vt_replay)_kernel"),
                  ("warp", r"warp_\w*kernel"),
-                 ("mp_rank", r"mp_rank_kernel"))}
+                 ("mp_rank", r"mp_rank_kernel"),
+                 ("gelu_fwd", r"basd_gelu_fwd_\w*kernel"),
+                 ("gelu_bwd", r"basd_gelu_bwd_\w*kernel"))}
 
 
 def teacher_layers(tch) -> int:
     """Token layers a teacher gives: every block of a ViT, one for a CNN."""
     return tch.spec.depth if tch.spec.feature_format == "token" else 1
+
+
+def gelu_mlps(module) -> int:
+    """The GELU MLPs of a model (a ViT's `Mlp`, a ConvNeXt's
+    `ConvNeXtMlp`): each runs the GELU kernel once a forward."""
+    from basd_tpu_torch.models.cnn import ConvNeXtMlp
+    from basd_tpu_torch.models.vit import Mlp
+
+    return sum(isinstance(m, (Mlp, ConvNeXtMlp)) for m in module.modules())
 
 
 def per_step_launches(scfg, tch, pts, k, augment) -> dict:
@@ -578,7 +598,9 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     the selector's three eighs (teacher and student Rayleigh-Ritz, the
     principal angles) that the Jacobi gate takes, K4 once per augmented
     view, the MP-rank kernel once (the teacher layers' ranks at n = D_s)
-    inside its gate, the SwiGLU gate in every block of a SwiGLU teacher."""
+    inside its gate, the SwiGLU gate in every block of a SwiGLU teacher,
+    the GELU forward in every GELU MLP of the teacher and of the student (a
+    student's twice under remat) and the GELU backward in the student's."""
     from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.ops import attention as attn
     from basd_tpu_torch.spectral.ops import use_jacobi, use_mp_kernel
@@ -590,6 +612,7 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
 
     student_blocks = fused_blocks(scfg)
     teacher_blocks = fused_blocks(tch.module.config) if tch.spec.family == "vit" else 0
+    student_gelu = scfg.depth if scfg.ffn == "gelu" else 0
     l, p = teacher_layers(tch), len(pts)
     return {"attention_fwd": student_blocks * (2 if scfg.remat else 1) + teacher_blocks,
             "attention_bwd": student_blocks,
@@ -597,7 +620,9 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
             "warp": int(augment), "jacobi_eigvals": 0, "attn_probe": 0,
             "mp_rank": int(use_mp_kernel(scfg.embed_dim)),
             "swiglu_gate": tch.spec.depth if tch.spec.family == "vit"
-            and tch.spec.ffn == "swiglu" else 0}
+            and tch.spec.ffn == "swiglu" else 0,
+            "gelu_fwd": student_gelu * (2 if scfg.remat else 1) + gelu_mlps(tch.module),
+            "gelu_bwd": student_gelu}
 
 
 def stage_table3(dev) -> dict:
@@ -792,7 +817,8 @@ def graph_check() -> int:
     kernels.build_all()
     dev = torch.device("cuda", 0)
     per_step = {"attention_fwd": 24, "attention_bwd": 12, "jacobi_eigh": 3, "warp": 1,
-                "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0}
+                "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0,
+                "gelu_fwd": 24, "gelu_bwd": 12}
     readings = graph_phase(dev, stage_table3(dev), per_step, MAIN_STEPS)
     print(json.dumps(readings))
     print(card_line(dev))
@@ -1255,6 +1281,179 @@ def swiglu_check() -> int:
     return 0
 
 
+# phase 5h: the erf GELU kernels (`csrc/gelu.cu`) at the MLP widths of the
+# benchmark's cells, each case (label, rows, width, dtype); the tail case
+# holds n % 8 = 7 values past its last whole vector, the unaligned one is a
+# view one element into its buffer (the scalar route)
+GELU_JSON = os.path.join("chiprun_out", "gelu.json")
+GELU_CASES = (("t1 teacher", 65792, 4096, "bfloat16"), ("t1 student", 50432, 1536, "bfloat16"),
+              ("t3 teacher", 640, 3072, "bfloat16"), ("t3 student", 8320, 768, "bfloat16"),
+              ("t1 student fp32", 50432, 1536, "float32"), ("tail", 4099, 13, "bfloat16"),
+              ("unaligned", 4096, 1536, "bfloat16"))
+GELU_CELLS = ("t3_cifar100_train", "t1_imagenet_train", "t1_vitg14_imagenet_train")
+GELU_SEED = 3000000019
+
+
+def ulp_gap(got, want) -> tuple[int, float]:
+    """(elements that differ, the largest difference in units of the last
+    place of `want`'s dtype at each differing value)."""
+    import torch
+
+    differ = got != want
+    count = int(differ.sum())
+    if not count:
+        return 0, 0.0
+    g, w = got[differ].double(), want[differ].double()
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), (e - 1).clamp(min=-126) - bits)
+    return count, float(((g - w).abs() / ulp).max())
+
+
+def gelu_case(dev, label: str, rows: int, width: int, dtype_name: str, seed: int) -> dict:
+    """The GELU kernels on seeded (rows, width) values x and upstream
+    gradients dy: the forward bit for bit F.gelu(x.float()).to(x.dtype); the
+    backward, alone and through `Gelu`'s autograd, against the composite's
+    autograd (at most one ulp, the differing elements counted); each timed
+    by device time alone (`kernel_ms`) beside the composite (the backward's:
+    dy widened, aten's gelu_backward on the saved fp32 x, rounded), torch's
+    own GELU in the dtype and its bound (2 and 3 n element-size bytes over
+    the memory bandwidth)."""
+    import torch
+    import torch.nn.functional as F
+
+    from basd_tpu_torch.ops.activations import (Gelu, gelu_backward_cuda, gelu_cuda,
+                                                gelu_plain, gelu_route)
+    from basd_tpu_torch.tools.timing import device_ms, kernel_ms
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = rows * width
+    draw = lambda: 3.0 * torch.randn((rows, width), generator=gen, device=dev)
+    if label == "unaligned":
+        x = torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(rows, width)
+        dy = torch.empty(n + 1, dtype=dtype, device=dev)[1:].view(rows, width)
+        x.copy_(draw())
+        dy.copy_(draw())
+    else:
+        x, dy = draw().to(dtype), draw().to(dtype)
+    y = gelu_cuda(x)
+    want = gelu_plain(x)
+    fwd_differ = int((y != want).sum())
+    dx = gelu_backward_cuda(dy, x)
+    xg = x.clone().requires_grad_(True)
+    F.gelu(xg.float()).to(dtype).backward(dy)
+    composite_dx = xg.grad
+    xf = xg.detach().clone().requires_grad_(True)
+    Gelu.apply(xf).backward(dy)
+    bwd_differ, bwd_ulps = ulp_gap(dx, composite_dx)
+    route = gelu_route(x, y)
+    if fwd_differ or bwd_ulps > 1.0 or not torch.equal(xf.grad, dx):
+        raise AssertionError(f"gelu {label} ({rows}, {width}) {dtype_name}: forward "
+                             f"{fwd_differ} values differ from the composite; backward "
+                             f"{bwd_differ} differ by up to {bwd_ulps} ulps (1 allowed); "
+                             f"through Gelu equal to the kernel's: "
+                             f"{torch.equal(xf.grad, dx)}")
+    del xg, xf
+    el = x.element_size()
+    saved = x.float()
+    composite_bwd = lambda: torch.ops.aten.gelu_backward(dy.float(), saved).to(dtype)
+    fwd = dict(route=route, differing=fwd_differ, max_abs_err=0.0,
+               ms=device_ms(lambda: gelu_cuda(x), dev),
+               device_ms=kernel_ms(lambda: gelu_cuda(x), dev),
+               plain_ms=kernel_ms(lambda: gelu_plain(x), dev),
+               library_ms=kernel_ms(lambda: F.gelu(x), dev),
+               bound_ms=2 * n * el / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    bwd = dict(route=route, differing=bwd_differ, max_ulps=bwd_ulps,
+               max_abs_err=float((dx.float() - composite_dx.float()).abs().max()),
+               ms=device_ms(lambda: gelu_backward_cuda(dy, x), dev),
+               device_ms=kernel_ms(lambda: gelu_backward_cuda(dy, x), dev),
+               plain_ms=kernel_ms(composite_bwd, dev),
+               library_ms=kernel_ms(lambda: torch.ops.aten.gelu_backward(dy, x), dev),
+               bound_ms=3 * n * el / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    for row in (fwd, bwd):
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / row["device_ms"]
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def gelu_cell_launches(dev, cell: str, seed: int) -> dict:
+    """The cell's program staged as the benchmark stages it
+    (`benchmark/stage/<family>.py`, full size), three steps (warm-up,
+    capture, replay) on one seeded batch: its route and one replay's
+    launches, the GELU's against `benchmark/costs/gelu.py`'s calls."""
+    import importlib
+
+    import torch
+
+    from benchmark import harness
+    from benchmark.costs.gelu import gelu_calls
+
+    cfg = harness.cell_spec(cell).config
+    stage = importlib.import_module(f"benchmark.stage.{cfg['family']}")
+    prog = stage.Program(cfg, harness.derive_seeds(seed), dev)
+    b, raw = cfg["data"]["batch_size"], cfg["data"]["raw_size"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randint(0, 256, (b, raw, raw, 3), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, cfg["student"]["num_classes"], (b,), generator=gen, device=dev)
+    for _ in range(3):
+        metrics = prog.step(images, labels)
+    torch.cuda.synchronize(dev)
+    want = {"gelu_fwd": len(gelu_calls(cfg, backward=False)),
+            "gelu_bwd": len(gelu_calls(cfg, backward=True))}
+    got = {name: prog.step_fn.launches[name] for name in want}
+    out = dict(route=prog.route[0], replay_launches=prog.step_fn.launches, gelu=got,
+               costs_calls=want, loss=float(metrics["loss"]))
+    del prog
+    torch.cuda.empty_cache()
+    if out["route"] != "graph" or got != want or not np.isfinite(out["loss"]):
+        raise AssertionError(f"{cell}: {out}")
+    return out
+
+
+def gelu_check() -> int:
+    """Phase 5h alone, a few minutes on one card: the kernels built, the
+    GELU cases, the benchmark cells' GELU launches a replay; its readings as
+    JSON into GELU_JSON, then the card's name and power limit. Run it as
+    `python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gelu_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(kernels.build_all().get("gelu", ""), flush=True)  # registers, spills
+    dev = torch.device("cuda", 0)
+    readings = {"cases": {}, "cells": {}}
+    for i, (label, rows, width, dtype) in enumerate(GELU_CASES):
+        case = f"{label} ({rows}, {width}) {dtype}"
+        row = readings["cases"][case] = gelu_case(dev, label, rows, width, dtype, GELU_SEED + i)
+        f, b = row["fwd"], row["bwd"]
+        print(f"kernel gelu {case}: route {f['route']}; forward bit for bit, device "
+              f"{f['device_ms']:.4f} ms (event loop {f['ms']:.4f}), bound {f['bound_ms']:.4f} "
+              f"({f['roofline_pct']:.1f}%), composite {f['plain_ms']:.4f}, F.gelu "
+              f"{f['library_ms']:.4f}; backward {b['differing']} values differ from the "
+              f"composite's autograd (max {b['max_ulps']:.3g} ulp), device "
+              f"{b['device_ms']:.4f} ms, bound {b['bound_ms']:.4f} ({b['roofline_pct']:.1f}%), "
+              f"composite {b['plain_ms']:.4f}, aten gelu_backward {b['library_ms']:.4f}",
+              flush=True)
+        torch.cuda.empty_cache()
+    for cell in GELU_CELLS:
+        row = readings["cells"][cell] = gelu_cell_launches(dev, cell, GELU_SEED)
+        print(f"{cell}: route {row['route']}; GELU launches a replay {row['gelu']} "
+              f"(costs/gelu.py {row['costs_calls']}); all {row['replay_launches']}", flush=True)
+    readings["card"] = card_line(dev)
+    os.makedirs(os.path.dirname(GELU_JSON), exist_ok=True)
+    with open(GELU_JSON, "w") as f:
+        json.dump(readings, f)
+    print(readings["card"])
+    return 0
+
+
 M7_OUT = "chiprun_out/m7"
 MP_RANK_JSON = os.path.join(os.path.dirname(M7_OUT), "mp_rank.json")  # phase 5f's readings
 # phase 8's run: `python -m basd_tpu_torch.train` as a user runs it, at
@@ -1352,6 +1551,7 @@ def trainer_phase(dev, env, bare_step_median_ms: float | None) -> dict:
     per_step = per_step_launches(scfg, trainer.teacher, trainer.extraction_points, k, True)
     want = {name: per_step[name] * steps for name in per_step}
     want["attention_fwd"] += scfg.depth * eval_forwards + teacher_layers(trainer.teacher)
+    want["gelu_fwd"] += scfg.depth * eval_forwards + gelu_mlps(trainer.teacher.module)
     want["mp_rank"] += 1
     # the trainer's kernel start-up check: this process's first Trainer
     check_launches = trainer.kernel_check_launches
@@ -1634,7 +1834,7 @@ def trainer_phase(dev, env, bare_step_median_ms: float | None) -> dict:
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
     want_eval = {name: 0 for name in eval_launches}
-    want_eval["attention_fwd"] = scfg.depth * (
+    want_eval["attention_fwd"] = want_eval["gelu_fwd"] = scfg.depth * (
         eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
     if not (same_primary(sub_primary) and same_primary(in_process["primary"])
             and eval_launches == want_eval):
@@ -2601,7 +2801,8 @@ def main() -> int:
     # Table-3's launches per step, as every earlier run counted them
     table3 = {"attention_fwd": 24, "attention_bwd": 12,
               "jacobi_eigh": 3 if k3_on_path else 0, "warp": 1,
-              "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0}
+              "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0,
+              "gelu_fwd": 24, "gelu_bwd": 12}
     if per_step_launches(cfg, teacher, points, k_cal, True) != table3:
         raise AssertionError(f"Table-3 launches per step "
                              f"{per_step_launches(cfg, teacher, points, k_cal, True)}")
@@ -2806,6 +3007,17 @@ def main() -> int:
     report["swiglu_gate"] = {f"ViT-g teacher {case}": row
                              for case, row in swiglu["gate"].items()}
     path_launches["vitg14_step"] = swiglu["step"]["launches"]
+    # ---- 5h. the GELU kernels and the cells' GELU launches, in a process of its own ----
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.gelu_check())"],
+        capture_output=True, text=True, timeout=1200, env=package_env())
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"gelu_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(GELU_JSON) as f:
+        gelu_readings = json.load(f)
+    for name, part in (("gelu_fwd", "fwd"), ("gelu_bwd", "bwd")):
+        report[name] = {case: row[part] for case, row in gelu_readings["cases"].items()}
     timing = mp["timing"]["shapes"]
     report["mp_rank"] = {}
     for bsz, nn_, m_ in time_mp_rank.PLAIN_SHAPES:
@@ -3217,10 +3429,12 @@ def main() -> int:
         # each rank's first Trainer runs the kernel start-up check
         want = {n: v * 8 + KERNEL_CHECK_LAUNCHES[n] for n, v in per_step9.items()}
         want["attention_fwd"] += eval_fwd
+        want["gelu_fwd"] += eval_fwd
         if row["rank"] == 0:  # the efficiency forwards and the K calibration
-            want["attention_fwd"] += m7_student.depth * (
-                eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches) \
-                + teacher_layers(trainer.teacher)
+            efficiency = m7_student.depth * (
+                eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
+            want["attention_fwd"] += efficiency + teacher_layers(trainer.teacher)
+            want["gelu_fwd"] += efficiency + gelu_mlps(trainer.teacher.module)
             want["mp_rank"] += 1
         if (row["subspace_k"] != k9 or row["steps"] != 8 or row["launches"] != want
                 or row["kernel_check_launches"] != KERNEL_CHECK_LAUNCHES
@@ -3419,9 +3633,9 @@ def main() -> int:
     torch.cuda.synchronize()
     path_launches["entry_forward"] = dict(kernels.LAUNCHES)
     if path_launches["entry_forward"] != {**dict.fromkeys(kernels.LAUNCHES, 0),
-                                          "attention_fwd": 12}:
+                                          "attention_fwd": 12, "gelu_fwd": 12}:
         raise AssertionError(f"entry forward launches {path_launches['entry_forward']}, "
-                             "expected K1 once per block (12)")
+                             "expected K1 and the GELU forward once per block (12)")
     cpu_forward, _ = entry_mod.entry(device="cpu")
     cpu_params = {k: v.cpu() for k, v in e_params.items()}
     seeded = torch.rand(e_images.shape, device=dev, generator=gen)
@@ -3489,6 +3703,12 @@ def main() -> int:
         "swiglu_gate": ("basd_tpu_torch/csrc/swiglu.cu",
                         "none (the JAX package has no SwiGLU MLP)",
                         f"ViT-g teacher ({VITG_ROWS}, {2 * VITG_G}) bfloat16"),
+        "gelu_fwd": ("basd_tpu_torch/csrc/gelu.cu",
+                     "none (basd_tpu/ops/activations.py, fused by XLA)",
+                     "t1 teacher (65792, 4096) bfloat16"),
+        "gelu_bwd": ("basd_tpu_torch/csrc/gelu.cu",
+                     "none (basd_tpu/ops/activations.py, fused by XLA)",
+                     "t1 student (50432, 1536) bfloat16"),
     }
     # each kernel's launches on the path it serves: the train step for
     # K1-K4, the spectral tuner for K5, the attention probe for K6
@@ -3499,7 +3719,7 @@ def main() -> int:
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
                 "orth_err", "eig3_err", "us_per_step", "route", "k1_ms",
                 "k1_plain_ms", "k1_bound_ms", "sdpa_ms", "differing",
-                "w_equals_k5", "k5_device_ms", "over_own_ulp",
+                "w_equals_k5", "k5_device_ms", "over_own_ulp", "max_ulps", "roofline_pct",
                 *(f"{k}_sweeps{sw}" for sw in (6, 12)
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                             "us_per_step", "k5_device_ms")))
