@@ -15,13 +15,6 @@ want to show a run went through the kernels reset it with
 one call: K3's `jacobi_eigh` above n = 96 (the rotations, then the V^T
 replay) counts the call once; K6's `attn_probe` tilemax (the tile maxima,
 then the variant) counts each launch.
-
-`add_cost` is how a wrapper reports the work of the kernel it launched to
-the cost tallies of `utils.profiling.step_cost_analysis` that are open
-(`COST_TALLIES`): the tallies read torch's ops, and a kernel called through
-`ctypes` is no torch op. Each wrapper reports, from its shapes, the FLOPs
-and transcendentals that the tally reads from its plain version at the same
-shape, and the bytes of its inputs and outputs.
 """
 
 from __future__ import annotations
@@ -107,9 +100,6 @@ LAUNCHES: dict[str, int] = {
     "gelu_bwd": 0,
 }
 
-# the open tallies of `utils.profiling.step_cost_analysis`
-COST_TALLIES: list = []
-
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -117,17 +107,6 @@ _LOCK = threading.Lock()
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def add_cost(flops: int, transcendentals: int, bytes_accessed: int) -> None:
-    """Add a launched kernel's work to every open cost tally."""
-    for tally in COST_TALLIES:
-        tally.add(flops, transcendentals, bytes_accessed)
-
-
-def nbytes(*tensors) -> int:
-    """The bytes of `tensors` (each read or written once)."""
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _nvcc() -> str:

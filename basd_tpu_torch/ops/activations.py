@@ -35,14 +35,6 @@ def gelu_backward_plain(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.ops.aten.gelu_backward(dy.float(), x.float()).to(x.dtype)
 
 
-def gelu_cost(n: int, element_size: int, backward: bool = False) -> tuple[int, int, int]:
-    """(FLOPs, transcendentals, bytes) of a kernel call over n values, as
-    the cost tally counts the plain version (no elementwise FLOPs, one
-    transcendental a value): forward x read and y written, backward dy and
-    x read and dx written."""
-    return 0, n, (3 if backward else 2) * n * element_size
-
-
 def gelu_route(*tensors: torch.Tensor) -> str:
     """The kernels' route (`launch_fwd` / `launch_bwd` in the source):
     "vec" where every pointer is 16-byte aligned, else "scalar"."""
@@ -68,7 +60,6 @@ def gelu_cuda(x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), y.data_ptr(), n, int(x.dtype == torch.bfloat16), stream)
     kernels.check(status, f"gelu_fwd ({n} {x.dtype})")
     kernels.LAUNCHES["gelu_fwd"] += 1
-    kernels.add_cost(*gelu_cost(n, x.element_size()))
     return y
 
 
@@ -89,7 +80,6 @@ def gelu_backward_cuda(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         dy.data_ptr(), x.data_ptr(), dx.data_ptr(), n, int(x.dtype == torch.bfloat16), stream)
     kernels.check(status, f"gelu_bwd ({n} {x.dtype})")
     kernels.LAUNCHES["gelu_bwd"] += 1
-    kernels.add_cost(*gelu_cost(n, x.element_size(), backward=True))
     return dx
 
 
@@ -125,13 +115,6 @@ def swiglu_gate_plain(x: torch.Tensor) -> torch.Tensor:
     return (F.silu(a) * b).to(x.dtype)
 
 
-def swiglu_gate_cost(rows: int, g: int, element_size: int) -> tuple[int, int, int]:
-    """(FLOPs, transcendentals, bytes) of the gate over (rows, 2g): a
-    negation, an add, a division and a product an output and one exp; a
-    and b read, the output written."""
-    return 4 * rows * g, rows * g, 3 * rows * g * element_size
-
-
 def gate_route(x: torch.Tensor, out: torch.Tensor) -> str:
     """The kernel's route (`launch` in the source): "vec" where g is a
     multiple of a 16-byte vector and both pointers are 16-byte aligned,
@@ -161,7 +144,6 @@ def swiglu_gate_cuda(x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), rows, g, int(x.dtype == torch.bfloat16), stream)
     kernels.check(status, f"swiglu_gate ({rows} x {2 * g} {x.dtype})")
     kernels.LAUNCHES["swiglu_gate"] += 1
-    kernels.add_cost(*swiglu_gate_cost(rows, g, x.element_size()))
     return out
 
 

@@ -83,16 +83,6 @@ def attention_backward_plain(q, k, v, do, m, denom, dd, head_dim: int):
     return _unheads(dq, dt), _unheads(dk, dt), _unheads(dv, dt)
 
 
-def attention_cost(b: int, n: int, d: int, head_dim: int, *,
-                   backward: bool = False) -> tuple[int, int]:
-    """(FLOPs, transcendentals) of K1, or of K2 with `backward`, as
-    `utils.profiling.step_cost_analysis` reads them from the plain version:
-    per head 2 (forward) or 5 (backward: the scores again, dV, dP, dQ, dK)
-    products of 2 N^2 hd each, and one exp per score."""
-    products = 5 if backward else 2
-    return products * 2 * b * n * n * d, b * (d // head_dim) * n * n
-
-
 def _check_cuda(tensors, names, head_dim):
     q = tensors[0]
     b, n, d = q.shape
@@ -145,8 +135,6 @@ def _attention_forward_cuda(q, k, v, head_dim: int):
     )
     kernels.check(status, "basd_attention_fwd")
     kernels.LAUNCHES["attention_fwd"] += 1
-    kernels.add_cost(*attention_cost(b, n, d, head_dim),
-                     kernels.nbytes(q, k, v, o, m, denom))
     return o, m, denom
 
 
@@ -167,8 +155,6 @@ def _attention_backward_cuda(q, k, v, do, m, denom, dd, head_dim: int):
     )
     kernels.check(status, "basd_attention_bwd")
     kernels.LAUNCHES["attention_bwd"] += 1
-    kernels.add_cost(*attention_cost(b, n, d, head_dim, backward=True),
-                     kernels.nbytes(q, k, v, do, m, denom, dd, dq, dk, dv))
     return dq, dk, dv
 
 

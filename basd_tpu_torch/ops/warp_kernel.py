@@ -160,9 +160,6 @@ def _warp_cuda(images: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     )
     kernels.check(status, f"warp route {route}")
     kernels.LAUNCHES["warp"] += 1
-    # the plain version takes no product and no transcendental (its taps
-    # are elementwise; the angles' tan and sin are in `warp_params`)
-    kernels.add_cost(0, 0, kernels.nbytes(images, params, out))
     return out
 
 

@@ -56,14 +56,6 @@ def eigvals_route(n: int) -> str:
     return "packed"
 
 
-def jacobi_cost(b: int, n: int, sweeps: int) -> tuple[int, int]:
-    """(FLOPs, transcendentals) of K3 or K5 on (b, n, n), n even, as
-    `utils.profiling.step_cost_analysis` reads them from the plain version:
-    no products, and two square roots per rotation ((n - 1) * sweeps steps
-    of n / 2 rotations)."""
-    return 0, b * n * (n - 1) * sweeps
-
-
 def _check(a: torch.Tensor) -> tuple[int, int]:
     b, n, _ = a.shape
     if a.dtype != torch.float32 or not a.is_contiguous():
@@ -99,7 +91,6 @@ def _jacobi_raw_cuda(a: torch.Tensor, sweeps: int):
             log.data_ptr(), vt.data_ptr(), b, n, steps, _stream(a))
     kernels.check(status, f"jacobi_eigh route {route}")
     kernels.LAUNCHES["jacobi_eigh"] += 1  # one a call, on either route
-    kernels.add_cost(*jacobi_cost(b, n, sweeps), kernels.nbytes(a, w, vt))
     return w, vt
 
 
@@ -114,7 +105,6 @@ def _jacobi_eigvals_raw_cuda(a: torch.Tensor, sweeps: int) -> torch.Tensor:
     )
     kernels.check(status, f"jacobi_eigvals route {route}")
     kernels.LAUNCHES["jacobi_eigvals"] += 1
-    kernels.add_cost(*jacobi_cost(b, n, sweeps), kernels.nbytes(a, w))
     return w
 
 

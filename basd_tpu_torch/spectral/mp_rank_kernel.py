@@ -52,14 +52,6 @@ def cluster_size(n: int) -> int | None:
 MAX_N = max(n for n in range(MIN_N, 1024) if cluster_size(n) is not None)
 
 
-def mp_rank_cost(b: int, n: int) -> tuple[int, int]:
-    """(FLOPs, transcendentals) of the kernel on (b, n, n), as
-    `utils.profiling.step_cost_analysis` reads them from the plain version:
-    the n - 2 batched products A v, and a square root a reflector and one
-    an off-diagonal entry."""
-    return 2 * b * n * n * (n - 2), b * (2 * n - 3)
-
-
 def mp_covariance(gram: torch.Tensor, m: int) -> torch.Tensor:
     """The symmetrised covariance X^T X / m of an uncentered Gram."""
     cov = gram.to(_F32) / m
@@ -91,7 +83,6 @@ def mp_rank_raw_cuda(gram: torch.Tensor, m: int):
         ctypes.c_float(m), ctypes.c_float(edge), _stream(gram))
     kernels.check(status, f"mp_rank (n = {n}, {c} CTAs a matrix)")
     kernels.LAUNCHES["mp_rank"] += 1
-    kernels.add_cost(*mp_rank_cost(b, n), kernels.nbytes(gram, ranks, diag, off2))
     return ranks, diag, off2
 
 

@@ -9,4 +9,9 @@ standalone (`smoke_kernels`) and the kernels' A/B timers (`time_jacobi`,
 basd_tpu_torch.tools.<name>`; each runs on the CUDA card unless its `main`
 is given `device="cpu"`, and takes its sizes as keyword arguments (the
 tuners) or its JAX tool's command line and keyword sizes (the profiler and
-the probes)."""
+the probes). `TEACHER_STATS` and `DATASET_STATS` are the normalisations
+that `probe_step_gap` and `probe_selector_internals` stage with: the
+teachers' ImageNet statistics and CIFAR-100's."""
+
+TEACHER_STATS = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+DATASET_STATS = ((0.507, 0.487, 0.441), (0.267, 0.256, 0.276))

@@ -41,7 +41,6 @@ from functools import partial
 import numpy as np
 import torch
 
-from basd_tpu_torch.bench import DATASET_STATS, TEACHER_STATS
 from basd_tpu_torch.device import resolve_device
 from basd_tpu_torch.losses.selector import init_selector, select_and_mix
 from basd_tpu_torch.spectral.jacobi_kernel import eigh_route
@@ -54,6 +53,7 @@ from basd_tpu_torch.spectral.ops import (
     topk_basis_gram,
     use_jacobi,
 )
+from basd_tpu_torch.tools import DATASET_STATS, TEACHER_STATS
 from basd_tpu_torch.tools.timing import fmt_ms, stage_ms
 
 TABLE1 = dict(l_t=12, b=256, n_t=257, d_t=768, p=4, n_s=197, d_s=384, k=200)

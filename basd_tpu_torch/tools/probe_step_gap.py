@@ -36,13 +36,13 @@ import time
 import numpy as np
 import torch
 
-from basd_tpu_torch.bench import DATASET_STATS, TEACHER_STATS
 from basd_tpu_torch.device import resolve_device
 from basd_tpu_torch.losses import calibrate_subspace_k, extraction_points, init_selector
 from basd_tpu_torch.losses.selector import select_and_mix
 from basd_tpu_torch.models import create_student, extract_intermediates, load_teacher
 from basd_tpu_torch.ops.mixup import mixup_cutmix
 from basd_tpu_torch.ops.preprocess import dual_view, eval_view
+from basd_tpu_torch.tools import DATASET_STATS, TEACHER_STATS
 from basd_tpu_torch.training.train_step import make_train_step, sample_step_draws
 from basd_tpu_torch.utils.kernel_smoke import validate_kernel_dispatches
 

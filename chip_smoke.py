@@ -53,20 +53,19 @@ Phases, in order; any failure raises and the exit code is not 0:
      K3 at n = 192, K6 and K1 beside it) are the tools' readings in phase
      5b, and the tuner reuses the features staged here;
   5. main path: a short `make_train_step(augment=False)` run, then train
-     steps of `make_train_step(augment=True)` (bench.py's step), each with
-     the kernels' launch counters reset just before and read just after;
+     steps of `make_train_step(augment=True)`, each with the kernels'
+     launch counters reset just before and read just after;
      both are the graph route (the first step eager, then one CUDA graph
      captured and replayed);
   5b. tools: one full-size run of each tool path
      (`basd_tpu_torch.tools.tune_spectral`, `probe_jacobi_sweeps`,
      `probe_attn_internals`), counters reset just before and read just
      after each;
-  5c. the 224 px steps at full width, batch 256 (bench.py's `--imagenet
-     --teacher dinov2_vitl14` and `--cross-arch` arms): Table-1 (DINOv2
+  5c. the 224 px steps at full width, batch 256: Table-1 (DINOv2
      ViT-L/14 teacher, ViT-S/16 student) and Table-2 (ConvNeXt-V2-Tiny
-     teacher, DeiT-Tiny/16 student), staged as bench.py stages them, 1 + 2
-     augmented steps each with the exact launches per step, counters reset
-     just before and read just after; K3 at Table-2's (4, K, K); the ViT-L
+     teacher, DeiT-Tiny/16 student), 1 + 2 augmented steps each with the
+     exact launches per step, counters reset just before and read just
+     after; K3 at Table-2's (4, K, K); the ViT-L
      teacher's intrinsic dimension and the student it derives;
   5d. the float64 oracle: the selector on the card against
      `spectral/reference.py:selector_d2_np` on the host, fed the same
@@ -158,16 +157,10 @@ Phases, in order; any failure raises and the exit code is not 0:
      bit-identical and equal to `latest` restored in one process, and a
      one-process `evaluate` reproducing the run's final eval (top-1/top-5
      equal, loss within 1e-5); 9c, K1/K2 at the ranks' shapes, in phase 4;
-  10. measurement entry points: `python -m basd_tpu_torch.bench` in
-     processes of its own for the default arm (Table-3), `--imagenet
-     --teacher dinov2_vitl14` (Table-1) and `--cross-arch` (Table-2), at
-     full width with the bench's own step counts: exit 0, a finite loss,
-     0 < mfu_vs_bf16_peak <= 1.05 and the launches of a timed step equal to
-     phase 5's and 5c's exact counts, printed beside this run's step
-     medians; then `tools.profile_step` (Table-3 and `--imagenet`),
-     `probe_selector_internals` (`--t3`, and `--teacher dinov2_vitl14
-     --model-tokens`: the selector's components at K = 192 on cuSOLVER, on
-     the models' own tokens), `probe_loss_tail` and
+  10. measurement entry points: `tools.profile_step` (Table-3 and
+     `--imagenet`), `probe_selector_internals` (`--t3`, and `--teacher
+     dinov2_vitl14 --model-tokens`: the selector's components at K = 192 on
+     cuSOLVER, on the models' own tokens), `probe_loss_tail` and
      `probe_step_gap`, each with the counters reset just before and read
      just after, with the phase's seconds;
   11. the last tools and the entry check: `probe_ns_mixed` (the Newton-
@@ -3510,49 +3503,15 @@ def main() -> int:
           "primary_4_ranks": dp_primary, "primary_one_process": one_primary}
 
     # ---- 10. the measurement entry points ----
-    # `python -m basd_tpu_torch.bench` in processes of its own, at full width
-    # and with its own step counts, for the arms of phases 5 and 5c: the
-    # default (Table-3), `--imagenet --teacher dinov2_vitl14` (Table-1) and
-    # `--cross-arch` (Table-2); each exits 0 with its JSON line last, a
-    # finite loss, 0 < MFU <= 1.05 and the launches of one timed step equal
-    # to the same arm's exact count. Then the stage profiler and three
-    # probes in this process at full width, each with the counters reset
-    # just before and read just after (`tool_path`), their timed calls per
-    # stage lowered to MEASURE_ARGS' to keep the run in its time.
+    # The stage profiler and three probes in this process at full width,
+    # each with the counters reset just before and read just after
+    # (`tool_path`), their timed calls per stage lowered to MEASURE_ARGS' to
+    # keep the run in its time.
     from basd_tpu_torch.tools import probe_loss_tail, probe_selector_internals, probe_step_gap
     from basd_tpu_torch.tools import profile_step as profile_step_tool
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    bench_arms = {"Table-3": ([], table3, step_ms),
-                  "Table-1": (["--imagenet", "--teacher", "dinov2_vitl14"],
-                              table1["per_step"], table1["step_ms"]),
-                  "Table-2": (["--cross-arch"], table2["per_step"], table2["step_ms"])}
-    benches = {}
-    for label, (argv, per_step, arm_ms) in bench_arms.items():
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.bench", *argv],
-                              capture_output=True, text=True, timeout=600, env=env)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode != 0 or not lines:
-            raise AssertionError(f"bench {label} exited {proc.returncode}:\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        out = json.loads(lines[-1])
-        d = out["detail"]
-        if not (np.isfinite(d["loss"]) and 0 < d["mfu_vs_bf16_peak"] <= 1.05
-                and d["kernel_fallbacks"] == []):
-            raise AssertionError(f"bench {label}: {lines[-1]}")
-        if d["launches"] != per_step:
-            raise AssertionError(f"bench {label}: launches per step {d['launches']}, "
-                                 f"expected {per_step}")
-        benches[label] = dict(out, wall_s=time.perf_counter() - t0,
-                              chip_smoke_median_ms=float(np.median(arm_ms[1:])))
-        print(f"bench {label}: {lines[-1]}")
-        print(f"bench {label}: {benches[label]['wall_s']:.1f} s; step {d['step_time_ms']} ms "
-              f"(slope), {out['value']} images/s, mfu_vs_bf16_peak "
-              f"{d['mfu_vs_bf16_peak']:.6f}; launches per step {d['launches']} (exact); "
-              f"this run's phase 5/5c step median {benches[label]['chip_smoke_median_ms']:.2f} ms")
-
     measured_tools = {}
     for name, module, argv, needs in (
             ("profile_step", profile_step_tool, MEASURE_ARGS["profile_step"],
@@ -3746,7 +3705,6 @@ def main() -> int:
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "m7": m7, "m8": m8, "oracle": oracle, "graph": graph,
                       "mp_rank": mp, "swiglu": swiglu,
-                      "bench": benches,
                       "measure_tools": measured_tools, "measure_s": measure_s,
                       "last_tools": last_tools, "entry_rel_err": entry_err,
                       "entry_s": entry_s,

@@ -4,7 +4,12 @@ against the JAX package's Pallas kernels in interpret mode and its
 (student D=192 H=3, teacher D=768 H=12, head_dim 64), the Table-1 ones
 (N=197 D=384 H=6, N=257 D=768 H=12), head_dim 32 and 128, and ragged N
 (1, 17, 129): the shapes whose tiling (16-row warp tiles, 64-row chunks,
-padded keys) the CUDA kernels have to get right."""
+padded keys) the CUDA kernels have to get right. The kernel wrappers'
+launches against a recording stand-in library: the arguments each passes
+to its C entry point and the one launch it counts."""
+
+import ctypes
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +18,7 @@ import pytest
 import torch
 
 from basd_tpu.ops import attention as jattn
+from basd_tpu_torch import kernels
 from basd_tpu_torch.ops import attention as tattn
 from test_torch_helpers import assert_close, t32
 
@@ -123,3 +129,92 @@ def test_supports_fused_gate_matches_jax():
     for n, d, hd in [(65, 192, 64), (5, 768, 64), (513, 192, 64),
                      (65, 192, 24), (65, 4096, 128), (512, 2048, 128)]:
         assert tattn.supports_fused(n, d, hd) == jattn.supports_fused(n, d, hd)
+
+
+class _StandIn:
+    """The library's two entry points over CPU memory: each records its
+    arguments and writes its plain version's values through the output
+    pointers, so the wrappers' marshalling runs end to end."""
+
+    def __init__(self, tensors):
+        self.by_ptr = {t.data_ptr(): t for t in tensors}
+        self.calls = []
+
+    def _write(self, ptrs, values):
+        for ptr, value in zip(ptrs, values):
+            value = value.contiguous()
+            ctypes.memmove(ptr, value.data_ptr(), value.numel() * value.element_size())
+
+    def basd_attention_fwd(self, *args):
+        self.calls.append(("fwd", args))
+        self._write(args[3:6], tattn.attention_forward_plain(
+            *(self.by_ptr[p] for p in args[:3]), args[9]))
+        return 0
+
+    def basd_attention_bwd(self, *args):
+        self.calls.append(("bwd", args))
+        self._write(args[7:10], tattn.attention_backward_plain(
+            *(self.by_ptr[p] for p in args[:7]), args[13]))
+        return 0
+
+
+def _packed_qkv(b=2, n=17, d=48, seed=0):
+    """bf16 q, k, v as the column blocks of one (B, N, 3D) projection:
+    strided views, each 16-byte aligned, with row stride 3D."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, n, 3 * d), generator=g).to(torch.bfloat16)
+    return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    holder = {}
+    monkeypatch.setattr(kernels, "library", lambda name: holder["lib"])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    monkeypatch.setitem(kernels.LAUNCHES, "attention_fwd", 0)
+    monkeypatch.setitem(kernels.LAUNCHES, "attention_bwd", 0)
+
+    def make(*tensors):
+        holder["lib"] = _StandIn(tensors)
+        return holder["lib"]
+    return make
+
+
+def test_forward_wrapper_passes_pointers_strides_and_stream(stand_in):
+    """K1 at (2, 17, 48) H=3 bf16 on strided q, k, v: the pointers of the
+    three inputs and of o, m and denom, (B, N, H, hd), each input's batch
+    and row strides in elements, the bf16 flag and the current stream;
+    one launch counted, and the outputs the stand-in wrote come back."""
+    q, k, v = _packed_qkv()
+    lib = stand_in(q, k, v)
+    o, m, denom = tattn._attention_forward_cuda(q, k, v, 16)
+    assert (o.shape, m.shape, denom.shape) == ((2, 17, 48), (2, 17, 3), (2, 17, 3))
+    assert o.dtype == torch.bfloat16 and m.dtype == denom.dtype == torch.float32
+    strides = (17 * 144, 144) * 3
+    assert lib.calls == [("fwd", (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                  m.data_ptr(), denom.data_ptr(), 2, 17, 3, 16,
+                                  *strides, 1, 7))]
+    for got, want in zip((o, m, denom), tattn.attention_forward_plain(q, k, v, 16)):
+        assert torch.equal(got, want)
+    assert (kernels.LAUNCHES["attention_fwd"], kernels.LAUNCHES["attention_bwd"]) == (1, 0)
+
+
+def test_backward_wrapper_passes_pointers_strides_and_stream(stand_in):
+    """K2 at (2, 17, 48) H=3 bf16, strided q, k, v and a contiguous dO:
+    the seven inputs' and three outputs' pointers, (B, N, H, hd), q, k, v
+    and dO's batch and row strides, the bf16 flag and the stream; one
+    launch counted, and dq, dk, dv the stand-in wrote come back."""
+    q, k, v = _packed_qkv()
+    do = torch.randn((2, 17, 48), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    _, m, denom = tattn.attention_forward_plain(q, k, v, 16)
+    dd = torch.randn((2, 17, 3), generator=torch.Generator().manual_seed(2))
+    lib = stand_in(q, k, v, do, m, denom, dd)
+    dq, dk, dv = tattn._attention_backward_cuda(q, k, v, do, m, denom, dd, 16)
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, do, m, denom, dd, dq, dk, dv))
+    strides = (17 * 144, 144) * 3 + (17 * 48, 48)
+    assert lib.calls == [("bwd", (*ptrs, 2, 17, 3, 16, *strides, 1, 7))]
+    want = tattn.attention_backward_plain(q, k, v, do, m, denom, dd, 16)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.shape == (2, 17, 48) and torch.equal(got, w)
+    assert (kernels.LAUNCHES["attention_fwd"], kernels.LAUNCHES["attention_bwd"]) == (0, 1)

@@ -177,20 +177,12 @@ def test_run_eval_suite_gives_the_jax_packages_schema_and_numbers(models, tmp_pa
 
 
 def test_profiling_and_debug_utilities(models, tmp_path):
-    """`step_cost_analysis` of one forward at batch 1 counts the FLOPs that
-    `count_flops` counts, and the call's transcendentals and bytes;
-    `profile_trace` writes a Chrome trace;
-    `configure_debug` turns on anomaly detection and deterministic
-    algorithms."""
+    """`profile_trace` writes a Chrome trace; `configure_debug` turns on
+    anomaly detection and deterministic algorithms."""
     from basd_tpu_torch.utils.debug import configure_debug
-    from basd_tpu_torch.utils.profiling import profile_trace, step_cost_analysis
+    from basd_tpu_torch.utils.profiling import profile_trace
 
     _, _, ts = models
-    with torch.no_grad():
-        cost = step_cost_analysis(lambda x: ts(x, train=False), torch.zeros((1, IMG, IMG, 3)))
-    assert sorted(cost) == ["bytes_accessed", "flops", "transcendentals"]
-    assert cost["flops"] == float(tmetrics.count_flops(ts, IMG))
-    assert cost["transcendentals"] > 0 and cost["bytes_accessed"] > 0
     x = torch.zeros((2, IMG, IMG, 3))
     with profile_trace(tmp_path / "trace"):
         ts(x)

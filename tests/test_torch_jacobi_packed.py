@@ -5,7 +5,8 @@ the next rotations as the rotation lanes compute them, bit for bit against
 `jacobi_step` and `pair_rotations` on symmetric input at every even n to
 96; whole packed runs within tolerance of the JAX package's
 `pallas_jacobi_eigvals` (interpret mode); and the wrapper's dispatch by n
-against a recording stand-in for the library. The eigh kernel's packed_log
+against a recording stand-in for the library, with the pointers, sizes
+and stream each launch passes. The eigh kernel's packed_log
 route (K3, 96 < n <= 238), the packed run's rotation log replayed onto V^T
 (`replay_vt`): bit for bit `jacobi_eigh`'s V when fed its own rotations,
 within tolerance of its raw (w, V) when fed the packed run's, at every
@@ -13,6 +14,8 @@ even n the route takes, and within tolerance of the JAX package's
 `pallas_jacobi_eigh` (interpret mode)."""
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -269,6 +272,44 @@ def test_raw_eigvals_launch_takes_the_route_of_eigvals_route(n, monkeypatch):
     [(entry, args)] = lib.calls
     assert entry == f"basd_jacobi_eigvals_{jacobi_kernel.eigvals_route(n)}"
     assert args[2:5] == (2, n, (n - 1) * 9)
+    assert jacobi_kernel.kernels.LAUNCHES["jacobi_eigvals"] == 1
+
+
+@pytest.mark.parametrize("n", [6, 7, 48, 120])
+def test_raw_launches_pass_pointers_sizes_and_stream(n, monkeypatch):
+    """K3 (ping-pong to n = 96, packed_log at 120) and K5 at sweeps 2, an
+    odd n padded to even first as `kernel_jacobi_eigh` pads it: each passes
+    its input's and outputs' pointers, (batch, padded n, steps) and the
+    current stream; packed_log's replay reads the log its first launch
+    wrote; each call counts one launch."""
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(jacobi_kernel.kernels, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    for name in ("jacobi_eigh", "jacobi_eigvals"):
+        monkeypatch.setitem(jacobi_kernel.kernels.LAUNCHES, name, 0)
+    padded, n0 = tjacobi.symmetrize_pad(t32(psd(3, n, seed=n)))
+    m = n + n % 2
+    assert n0 == n and padded.shape == (3, m, m)
+    steps = (m - 1) * 2
+    w, vt = jacobi_kernel._jacobi_raw_cuda(padded, 2)
+    assert w.shape == (3, m) and vt.shape == (3, m, m)
+    route = jacobi_kernel.eigh_route(m)
+    assert route == ("packed_log" if n == 120 else "pingpong")
+    if route == "pingpong":
+        assert lib.calls == [("basd_jacobi_eigh_pingpong", (
+            padded.data_ptr(), w.data_ptr(), vt.data_ptr(), 3, m, steps, 7))]
+    else:
+        [(first, a1), (second, a2)] = lib.calls
+        assert (first, second) == ("basd_jacobi_eigh_packed_log", "basd_jacobi_eigh_vt_replay")
+        assert a1[:2] == (padded.data_ptr(), w.data_ptr()) and a1[3:] == (3, m, steps, 7)
+        assert a2 == (a1[2], vt.data_ptr(), 3, m, steps, 7)
+    assert jacobi_kernel.kernels.LAUNCHES["jacobi_eigh"] == 1
+    lib.calls.clear()
+    w5 = jacobi_kernel._jacobi_eigvals_raw_cuda(padded, 2)
+    assert w5.shape == (3, m)
+    assert lib.calls == [("basd_jacobi_eigvals_packed", (
+        padded.data_ptr(), w5.data_ptr(), 3, m, steps, 7))]
     assert jacobi_kernel.kernels.LAUNCHES["jacobi_eigvals"] == 1
 
 

@@ -1,7 +1,9 @@
 """The port's ViT (`basd_tpu_torch/models/vit.py`) held against the flax
 ViT of the JAX package, with the JAX weights carried across by the port's
 own `vit_state_dict_from_jax`: eval forward (logits, tokens, importance)
-and the train-mode forward and backward, fp32 on the CPU."""
+and the train-mode forward and backward, fp32 on the CPU; and the
+published students' configs and parameter counts against the JAX
+package's `create_student`."""
 
 import jax
 import jax.numpy as jnp
@@ -9,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from basd_tpu.losses import extraction_points as jax_extraction_points
 from basd_tpu.models import create_student as jax_create_student
 from basd_tpu.models import load_teacher as jax_load_teacher
 from basd_tpu.models.convert import torch_vit_to_flax
+from basd_tpu_torch.losses import extraction_points
 from basd_tpu_torch.models import create_student, load_teacher
 from basd_tpu_torch.models.convert import vit_state_dict_from_jax
 from test_torch_helpers import (
@@ -123,3 +127,37 @@ def test_converter_is_inverse_of_jax_converter(preset):
     assert len(leaves_a) == len(leaves_b)
     for path, leaf in leaves_a:
         np.testing.assert_array_equal(leaf, leaves_b[path])
+
+
+# the students the paper's tables train: Table-3's DeiT-Tiny at patch 4 on
+# 32 px CIFAR-100, Table-1's ViT-S/16 and Table-2's DeiT-Tiny/16 on
+# ImageNet's 1000 classes, the last two at 64 px in place of 224 (the image
+# size changes only their patch grid and position embeddings)
+STUDENTS = {
+    "vit_tiny_patch16_img32": ("vit_tiny_patch16", {"patch_size": 4}, 32, 100),
+    "vit_small_patch16_img64": ("vit_small_patch16", None, 64, 1000),
+    "vit_tiny_patch16_img64": ("vit_tiny_patch16", None, 64, 1000),
+}
+CONFIG_FIELDS = ("img_size", "patch_size", "embed_dim", "depth", "num_heads",
+                 "mlp_ratio", "num_classes", "drop_path_rate", "has_cls_token",
+                 "layer_scale_init", "remat", "num_patches")
+
+
+@pytest.mark.parametrize("name", sorted(STUDENTS))
+def test_create_student_matches_the_jax_package_at_the_published_students(name):
+    """The port's `create_student` gives the JAX package's config and
+    parameter count (its params by `jax.eval_shape`, nothing run) for the
+    same preset, overrides, image size, classes and extraction points."""
+    preset, overrides, img, classes = STUDENTS[name]
+    kw = dict(num_classes=classes, drop_path_rate=0.05, img_size=img,
+              arch_overrides=overrides, remat=False)
+    jmod, jcfg = jax_create_student(preset, capture_layers=jax_extraction_points(12, 4),
+                                    dtype=jnp.bfloat16, **kw)
+    shapes = jax.eval_shape(lambda: jmod.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, img, img, 3)), train=False))["params"]
+    want = sum(int(np.prod(p.shape)) for p in jax.tree_util.tree_leaves(shapes))
+    tmod, tcfg = create_student(preset, capture_layers=extraction_points(12, 4),
+                                dtype=torch.bfloat16, device=CPU, **kw)
+    assert {f: getattr(tcfg, f) for f in CONFIG_FIELDS} == \
+        {f: getattr(jcfg, f) for f in CONFIG_FIELDS}
+    assert sum(p.numel() for p in tmod.parameters()) == want

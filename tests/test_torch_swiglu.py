@@ -65,10 +65,8 @@ def test_gate_plain_version_rounds_once(g, dtype):
 
 
 def test_gate_cost_and_routes():
-    """The kernel's cost from its shape, and its route: 16-byte vectors
-    where g is a whole number of them and both pointers are aligned."""
-    assert activations.swiglu_gate_cost(65792, 4096, 2) == (
-        4 * 65792 * 4096, 65792 * 4096, 3 * 65792 * 4096 * 2)
+    """The kernel's route: 16-byte vectors where g is a whole number of
+    them and both pointers are aligned."""
     x = torch.zeros((4, 48), dtype=torch.bfloat16)
     assert activations.gate_route(x, torch.zeros((4, 24), dtype=torch.bfloat16)) == "vec"
     assert activations.gate_route(x[:, :40], torch.zeros((4, 20), dtype=torch.bfloat16)) \

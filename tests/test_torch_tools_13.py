@@ -2,15 +2,12 @@
 tools they port: `probe_ns_mixed` (the Newton-Schulz square root by
 per-step precision schedules), `probe_warp_kernel` and
 `probe_warp_parity8` (K4 against the tap sweep, and the card against the
-CPU), and `stamp_bench_artifact`. The JAX tools are loaded from `tools/`
+CPU). The JAX tools are loaded from `tools/`
 and run with their warp or square-root call replaced by a recorder, so
 their own numpy draws are read, not copied."""
 
 import importlib.util
-import json
 import re
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -27,7 +24,6 @@ from basd_tpu_torch.tools import (
     probe_ns_mixed,
     probe_warp_kernel,
     probe_warp_parity8,
-    stamp_bench_artifact,
 )
 
 torch.set_num_threads(1)
@@ -297,43 +293,3 @@ def test_tools_run_on_the_card_by_default(tool, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tool.main()
 
-
-# ---- stamp_bench_artifact ----
-
-
-def _stamp(*args, env=None):
-    return subprocess.run([sys.executable, "-m", "basd_tpu_torch.tools.stamp_bench_artifact",
-                           *args], capture_output=True, text=True, cwd=ROOT, env=env,
-                          timeout=60)
-
-
-def test_stamp_adds_the_jax_tools_provenance_keys():
-    line = {"metric": "m", "value": 1.5, "detail": {"device": "NVIDIA H100, 700.00 W"}}
-    proc = _stamp("t1", json.dumps(line), "abc1234")
-    assert proc.returncode == 0, proc.stderr
-    out = json.loads(proc.stdout)
-    src = (ROOT / "tools" / "stamp_bench_artifact.py").read_text()
-    keys = re.findall(r'^\s*"(\w+)": ', src[src.index('j["provenance"]'):], re.M)
-    assert list(out["provenance"]) == keys == ["measured_at", "git_rev_at_measurement", "note"]
-    assert {k: out[k] for k in line} == line
-    assert out["provenance"]["git_rev_at_measurement"] == "abc1234"
-    assert re.fullmatch(r"\d{4}-\d\d-\d\dT\d\d:\d\dZ", out["provenance"]["measured_at"])
-    assert out["provenance"]["note"] == (
-        "python -m basd_tpu_torch.bench arm 't1' on NVIDIA H100, 700.00 W")
-
-
-def test_stamp_exits_non_zero_on_a_malformed_line():
-    assert _stamp("t1", "{not json").returncode != 0
-    assert _stamp("t1", "[1, 2]").returncode != 0
-    assert _stamp("t1").returncode != 0
-
-
-def test_stamp_without_a_device_or_nvidia_smi_says_unknown_card(monkeypatch, capsys):
-    """No `device` field and no nvidia-smi on the path: "unknown card", and
-    the checkout's HEAD (or "unknown") as the rev."""
-    monkeypatch.setenv("PATH", "")
-    assert stamp_bench_artifact.main(["t3", json.dumps({"value": 2.0})]) == 0
-    out = json.loads(capsys.readouterr().out)
-    assert out["provenance"]["note"].endswith("arm 't3' on unknown card")
-    assert out["provenance"]["git_rev_at_measurement"] == "unknown"
-    assert stamp_bench_artifact.card_name({"device": "card A"}) == "card A"

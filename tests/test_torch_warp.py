@@ -2,9 +2,11 @@
 JAX package's warp: its Pallas kernel in interpret mode and its XLA tap
 sweep (`augment._geometric_warp`), fp32 on the CPU, inputs from numpy
 seeds. The CUDA kernel is held against this plain version on the card by
-chip_smoke.py."""
+chip_smoke.py; here its wrapper's launches run against a recording
+stand-in library."""
 
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -262,6 +264,25 @@ def test_raw_launch_takes_the_route_of_warp_route(n, c, monkeypatch):
     assert entry == f"basd_warp_{route}"
     assert args[3:6] == (2, n, c)
     assert route == ("cta" if c == 1 or n <= 139 else "cluster")
+    assert twarp.kernels.LAUNCHES["warp"] == 1
+
+
+def test_raw_launch_passes_pointers_sizes_and_stream(monkeypatch):
+    """K4 at (2, 16, 16, 3): the images', output's and params' pointers,
+    (batch, n, C) and the current stream, on the route `warp_route` names;
+    one launch counted."""
+    images = torch.from_numpy(_images(2, 16, seed=3))
+    params = twarp.warp_params(*(torch.from_numpy(x[:2].copy()) for x in _params(8)[:5]))
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(twarp.kernels, "library", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    monkeypatch.setitem(twarp.kernels.LAUNCHES, "warp", 0)
+    out = twarp._warp_cuda(images, params)
+    assert twarp.warp_route(16, 3) == "cta"
+    assert out.shape == images.shape and out.dtype == torch.float32
+    assert lib.calls == [("basd_warp_cta", (images.data_ptr(), out.data_ptr(),
+                                            params.data_ptr(), 2, 16, 3, 7))]
     assert twarp.kernels.LAUNCHES["warp"] == 1
 
 
