@@ -14,18 +14,24 @@ rank (the JAX package's global-batch statistics). The teacher's sums carry
 no gradient; the student's go through `data_sum`, whose backward sums the
 ranks' upstream gradients.
 
-Dtype contract: teacher tokens are consumed in their compute dtype (the
-projection upcasts the bf16-rounded operands and multiplies in fp32); the
-mixed teacher tokens are stored back in the teacher dtype; everything else
-is fp32.
+Dtype contract: teacher tokens are consumed in their compute dtype, and
+the projection's operands are rounded to it (proj_t too). bf16 tokens on a
+CUDA device are projected by one bf16 x bf16 tensor-core product that
+accumulates and writes fp32 (`aten::mm.dtype`): the product of two bf16
+values is exact in fp32, so it sums the same exact products as an fp32
+product of the upcast operands, in another order (the JAX package's
+`preferred_element_type=jnp.float32`). Every other input (fp32 tokens, any
+tensor on the CPU) is upcast and multiplied in fp32. The mixed teacher
+tokens are stored back in the teacher dtype; everything else is fp32.
 
-Memory: the projection and the mix each multiply an fp32 copy of the whole
-teacher token stack, and the mix's product keeps its copy for the
-backward. Where that copy would pass F32_COPY_BYTES (DINOv2 ViT-g's 40
-layers at batch 256: 16.1 GB), both take the stack in slices whose copies
-stay under it, and the mix keeps no copy: its backward upcasts the stored
-tokens again, a slice at a time (`_MixSlices`). Smaller stacks (Table-1's
-ViT-L at 6.4 GB, Table-3's) take one product as before.
+Memory: the tensor-core projection makes no fp32 copy of the teacher token
+stack; the fp32 projection and the mix each multiply one, and the mix's
+product keeps its copy for the backward. Where that copy would pass
+F32_COPY_BYTES (DINOv2 ViT-g's 40 layers at batch 256: 16.1 GB), both take
+the stack in slices whose copies stay under it, and the mix keeps no copy:
+its backward upcasts the stored tokens again, a slice at a time
+(`_MixSlices`). Smaller stacks (Table-1's ViT-L at 6.4 GB, Table-3's) take
+one product as before.
 """
 
 from __future__ import annotations
@@ -97,10 +103,34 @@ def _slices(n: int, row_bytes: int) -> list[slice]:
     return [slice(i, min(i + step, n)) for i in range(0, n, step)]
 
 
+# tensor-core projections made (`_project` on bf16 tokens on a CUDA device):
+# one a `select_and_mix` or `calibrate_subspace_k` call there, none on the CPU
+TENSOR_CORE_PROJECTIONS = 0
+
+
+def tensor_core_projection(tokens: torch.Tensor) -> bool:
+    """Whether `_project` multiplies `tokens` on the tensor cores: bf16
+    tokens on a CUDA device."""
+    return tokens.dtype == torch.bfloat16 and tokens.device.type == "cuda"
+
+
 def _project(tokens: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """(L, M, D) tokens x (E, D) projection -> (L, M, E) fp32, from operands
-    rounded to the tokens' dtype; the tokens' fp32 copy made a slice of
-    layers at a time where the whole would pass F32_COPY_BYTES."""
+    rounded to the tokens' dtype: on the tensor cores where
+    `tensor_core_projection(tokens)`, else `_project_f32`."""
+    global TENSOR_CORE_PROJECTIONS
+    if not tensor_core_projection(tokens):
+        return _project_f32(tokens, proj)
+    l, m, d = tokens.shape
+    out = torch.mm(tokens.reshape(l * m, d), proj.to(tokens.dtype).T, out_dtype=torch.float32)
+    TENSOR_CORE_PROJECTIONS += 1
+    return out.reshape(l, m, -1)
+
+
+def _project_f32(tokens: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+    """`_project` as an fp32 product of the upcast operands; the tokens'
+    fp32 copy made a slice of layers at a time where the whole would pass
+    F32_COPY_BYTES."""
     p = proj.to(tokens.dtype).float().T
     l, m, d = tokens.shape
     parts = _slices(l, 4 * m * d)

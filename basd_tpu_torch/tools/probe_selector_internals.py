@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from basd_tpu_torch.device import resolve_device
-from basd_tpu_torch.losses.selector import init_selector, select_and_mix
+from basd_tpu_torch.losses.selector import _project, init_selector, select_and_mix
 from basd_tpu_torch.spectral.jacobi_kernel import eigh_route
 from basd_tpu_torch.spectral.ops import (
     _eigh_desc,
@@ -151,9 +151,8 @@ def main(argv=None, *, device=None, img_size: int | None = None, **shapes) -> di
 
     t_flat = t_tokens.reshape(l_t, b * n_t, d_t)
     s_flat = s_tokens.float().reshape(p, b * n_s, d_s)
-    # the selector's projection: operands rounded to the tokens' dtype, fp32
-    # products (`losses/selector.py:_project`)
-    proj_t = lambda: t_flat.float() @ sel.proj_t.to(torch.bfloat16).float().T
+    # the selector's own projection (`losses/selector.py:_project`)
+    proj_t = lambda: _project(t_flat, sel.proj_t)
     with torch.no_grad():
         z_t = proj_t()
         z_s = s_flat @ sel.proj_s.T

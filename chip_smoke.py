@@ -117,6 +117,18 @@ Phases, in order; any failure raises and the exit code is not 0:
      beside the composite, torch's own GELU and its bound; then each
      benchmark cell staged as the benchmark stages it, its GELU launches a
      replay equal to `benchmark/costs/gelu.py`'s calls;
+  5i. the selector's teacher projection (`projection_check()` in a
+     process of its own): `losses/selector.py:_project` on bf16 tokens, one
+     tensor-core product with fp32 accumulation and output, at t1's
+     (24 x 65,536, 1,024) and vg's (40 x 65,536, 1,536) stacks times
+     (1,024 | 1,536, 384): its error against a float64 product of the same
+     bf16 operands at most twice the fp32 form's (`_project_f32`), its bits
+     with `allow_bf16_reduced_precision_reduction` flipped, its cuBLAS
+     kernels and compute type (the libraries' API logs), timed beside the
+     fp32 form and its bound; `oracle_check` of one `select_and_mix` on
+     planted inputs at t1's and vg's token shapes, MP ranks equal, one
+     projection counted (`selector.TENSOR_CORE_PROJECTIONS`); and the
+     t1 cell's program counting 1, 1, 0 in its warm-up, capture and replay;
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
@@ -1369,17 +1381,15 @@ def gelu_case(dev, label: str, rows: int, width: int, dtype_name: str, seed: int
     return {"fwd": fwd, "bwd": bwd}
 
 
-def gelu_cell_launches(dev, cell: str, seed: int) -> dict:
+def stage_cell(dev, cell: str, seed: int) -> tuple:
     """The cell's program staged as the benchmark stages it
-    (`benchmark/stage/<family>.py`, full size), three steps (warm-up,
-    capture, replay) on one seeded batch: its route and one replay's
-    launches, the GELU's against `benchmark/costs/gelu.py`'s calls."""
+    (`benchmark/stage/<family>.py`, full size) and one seeded batch:
+    (program, configuration, images, labels)."""
     import importlib
 
     import torch
 
     from benchmark import harness
-    from benchmark.costs.gelu import gelu_calls
 
     cfg = harness.cell_spec(cell).config
     stage = importlib.import_module(f"benchmark.stage.{cfg['family']}")
@@ -1389,6 +1399,18 @@ def gelu_cell_launches(dev, cell: str, seed: int) -> dict:
     images = torch.randint(0, 256, (b, raw, raw, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
     labels = torch.randint(0, cfg["student"]["num_classes"], (b,), generator=gen, device=dev)
+    return prog, cfg, images, labels
+
+
+def gelu_cell_launches(dev, cell: str, seed: int) -> dict:
+    """The cell's program (`stage_cell`), three steps (warm-up, capture,
+    replay) on one seeded batch: its route and one replay's launches, the
+    GELU's against `benchmark/costs/gelu.py`'s calls."""
+    import torch
+
+    from benchmark.costs.gelu import gelu_calls
+
+    prog, cfg, images, labels = stage_cell(dev, cell, seed)
     for _ in range(3):
         metrics = prog.step(images, labels)
     torch.cuda.synchronize(dev)
@@ -1442,6 +1464,216 @@ def gelu_check() -> int:
     readings["card"] = card_line(dev)
     os.makedirs(os.path.dirname(GELU_JSON), exist_ok=True)
     with open(GELU_JSON, "w") as f:
+        json.dump(readings, f)
+    print(readings["card"])
+    return 0
+
+
+# phase 5i: the selector's teacher projection (`losses/selector.py:_project`)
+# at the main path's stacks, t1's ViT-L/14 (24 layers) and vg's ViT-g/14 (40
+# layers), each layer 256 images x 256 patch tokens, projected to the
+# student's 384: the tensor-core product (bf16 operands, fp32 accumulation
+# and output) against the fp32 form it replaced (`_project_f32`, its plain
+# version) and a float64 product of the same bf16 operands. An element's
+# error is |z - z64| over sum_k |t_k p_k| (the scale a dot product's
+# rounding grows with); the product's largest may be at most
+# PROJECTION_ERR_RATIO times the fp32 form's
+PROJECTION_JSON = os.path.join("chiprun_out", "projection.json")
+PROJECTION_CASES = (("t1", 24, 1024), ("vg", 40, 1536))
+PROJECTION_ROWS, PROJECTION_D_S = 256 * 256, 384
+PROJECTION_ERR_RATIO = 2.0
+PROJECTION_CHUNK = 1 << 17  # rows of the float64 product at a time
+PROJECTION_CELL = "t1_imagenet_train"
+PROJECTION_SEED = 3000000029
+
+
+def projection_case(dev, label: str, layers: int, d_t: int, seed: int) -> dict:
+    """The projection of seeded bf16 tokens (layers, PROJECTION_ROWS, d_t)
+    by a selector's proj_t: the tensor-core route counted once a call, its
+    error and the fp32 form's against the float64 product, its bits with
+    `allow_bf16_reduced_precision_reduction` off, the cuBLAS kernels it
+    runs, and both timed by device time alone beside the bound (max of
+    2 M d_t D_s FLOPs over 989 TFLOP/s and the bf16 tokens' read plus the
+    fp32 output's write over 3.35 TB/s)."""
+    import torch
+
+    from basd_tpu_torch.losses import init_selector, selector
+    from basd_tpu_torch.tools.timing import device_events, device_ms, device_us, kernel_ms
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.empty((layers, PROJECTION_ROWS, d_t), dtype=torch.bfloat16, device=dev)
+    for layer in tokens:
+        layer.copy_(torch.randn((PROJECTION_ROWS, d_t), generator=gen, device=dev))
+    proj = init_selector(seed, 4, PROJECTION_D_S, d_t, device=dev).proj_t
+    count = selector.TENSOR_CORE_PROJECTIONS
+    z = selector._project(tokens, proj)
+    counted = selector.TENSOR_CORE_PROJECTIONS - count
+    z_f32 = selector._project_f32(tokens, proj)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = not flag
+    flag_equal = torch.equal(selector._project(tokens, proj), z)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    p64 = proj.to(torch.bfloat16).double().T
+    err = {"tensor_cores": 0.0, "f32": 0.0}
+    abs_err = {"tensor_cores": 0.0, "f32": 0.0}
+    ref_max = 0.0
+    flat, outs = tokens.reshape(-1, d_t), {"tensor_cores": z.reshape(-1, PROJECTION_D_S),
+                                           "f32": z_f32.reshape(-1, PROJECTION_D_S)}
+    for i in range(0, flat.shape[0], PROJECTION_CHUNK):
+        a = flat[i:i + PROJECTION_CHUNK].double()
+        ref, scale = a @ p64, a.abs() @ p64.abs()
+        ref_max = max(ref_max, float(ref.abs().max()))
+        for name, out in outs.items():
+            diff = (out[i:i + PROJECTION_CHUNK].double() - ref).abs()
+            err[name] = max(err[name], float((diff / scale).max()))
+            abs_err[name] = max(abs_err[name], float(diff.max()))
+        del a, ref, scale
+    del z_f32, outs
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        selector._project(tokens, proj)
+        torch.cuda.synchronize(dev)
+    kernels_run = {e.key: device_us(e) / 1e3 for e in device_events(prof)}
+    m = layers * PROJECTION_ROWS
+    t_ops = 2 * m * d_t * PROJECTION_D_S / 989e12 * 1e3
+    t_bytes = (2 * m * d_t + 4 * m * PROJECTION_D_S + 2 * PROJECTION_D_S * d_t) \
+        / HBM_BYTES_PER_S * 1e3
+    row = dict(
+        shape=[layers, PROJECTION_ROWS, d_t, PROJECTION_D_S], counted=counted,
+        rel_err=err["tensor_cores"], plain_rel_err=err["f32"],
+        max_abs_err=abs_err["tensor_cores"], plain_max_abs_err=abs_err["f32"],
+        ref_max=ref_max, reduced_precision_flag=flag, bits_equal_with_flag_flipped=flag_equal,
+        cublas_kernels=kernels_run,
+        ms=device_ms(lambda: selector._project(tokens, proj), dev, reps=5),
+        device_ms=kernel_ms(lambda: selector._project(tokens, proj), dev, reps=10),
+        plain_ms=kernel_ms(lambda: selector._project_f32(tokens, proj), dev, reps=5),
+        bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    row["roofline_pct"] = 100.0 * row["bound_ms"] / row["device_ms"]
+    del tokens, z
+    torch.cuda.empty_cache()
+    if counted != 1 or row["rel_err"] > PROJECTION_ERR_RATIO * row["plain_rel_err"]:
+        raise AssertionError(f"projection {label}: {row}")
+    return row
+
+
+def projection_cublas_log(dev) -> dict:
+    """One tensor-core projection in a process of its own with cuBLAS's and
+    cuBLASLt's API logs on (they are read when the library loads): the
+    lines that name the compute type, from whichever library ran it."""
+    logs = {"cublas": os.path.join("chiprun_out", "projection_cublas.log"),
+            "cublaslt": os.path.join("chiprun_out", "projection_cublaslt.log")}
+    os.makedirs("chiprun_out", exist_ok=True)
+    for path in logs.values():
+        if os.path.exists(path):
+            os.remove(path)
+    env = {**package_env(), "CUBLAS_LOGINFO_DBG": "1", "CUBLAS_LOGDEST_DBG": logs["cublas"],
+           "CUBLASLT_LOG_LEVEL": "5", "CUBLASLT_LOG_FILE": logs["cublaslt"]}
+    code = ("import torch; from basd_tpu_torch.losses import selector; "
+            f"t = torch.randn((2, 4096, 1024), device='{dev}').bfloat16(); "
+            f"p = torch.randn((384, 1024), device='{dev}'); "
+            "z = selector._project(t, p); torch.cuda.synchronize(); "
+            "print(torch.__version__, torch.version.cuda, "
+            "torch.backends.cuda.preferred_blas_library(), z.dtype)")
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"projection cuBLAS log: {proc.stderr[-4000:]}")
+    out = {"process": proc.stdout.strip()}
+    for name, path in logs.items():
+        out[name] = []
+        if os.path.exists(path):
+            with open(path, errors="replace") as f:
+                out[name] = [line[:400] for line in f if "ompute" in line][:12]
+    return out
+
+
+def projection_oracle(dev, label: str, layers: int, d_t: int, seed: int) -> dict:
+    """`oracle_check` of one `select_and_mix` call on planted inputs at the
+    cell's token shapes (teacher (layers, 256, 256, d_t), student (4, 256,
+    196, 384); PLANTED_RANKS repeated over the layers, K = PLANTED_K): MP
+    ranks equal to the float64 oracle's, one tensor-core projection."""
+    import torch
+
+    from basd_tpu_torch.losses import init_selector, selector
+
+    sel = init_selector(1, len(PLANTED_PAIRS), PROJECTION_D_S, d_t, device=dev)
+    ranks = PLANTED_RANKS * (layers // len(PLANTED_RANKS))
+    t_tok, s_tok = planted_selector_inputs(sel.proj_s, sel.proj_t, (256, 256, d_t),
+                                           (256, 196, PROJECTION_D_S), seed, ranks=ranks)
+    imp = torch.full(t_tok.shape[:3], 1.0 / t_tok.shape[2], device=dev)
+    count = selector.TENSOR_CORE_PROJECTIONS
+    reading = oracle_check(f"{label} shapes {tuple(t_tok.shape)}, planted ranks "
+                           f"{PLANTED_RANKS} x {layers // len(PLANTED_RANKS)}", sel,
+                           s_tok, t_tok, imp, PLANTED_K, PLANTED_WEIGHTS_ATOL, PLANTED_D2)
+    reading["tensor_core_projections"] = selector.TENSOR_CORE_PROJECTIONS - count
+    del t_tok, s_tok, imp
+    torch.cuda.empty_cache()
+    if not reading["ranks_equal"] or reading["tensor_core_projections"] != 1:
+        raise AssertionError(f"projection oracle {label}: {reading}")
+    return reading
+
+
+def projection_cell_count(dev, cell: str, seed: int) -> dict:
+    """The cell's program (`stage_cell`): the tensor-core projections
+    counted in its eager warm-up step, in the step that captures its graph
+    (and replays it) and in one more replay (no Python runs there)."""
+    import torch
+
+    from basd_tpu_torch.losses import selector
+
+    prog, _, images, labels = stage_cell(dev, cell, seed)
+    counts = []
+    for _ in range(3):
+        selector.TENSOR_CORE_PROJECTIONS = 0
+        metrics = prog.step(images, labels)
+        counts.append(selector.TENSOR_CORE_PROJECTIONS)
+    torch.cuda.synchronize(dev)
+    out = dict(route=prog.route[0], counts=counts, loss=float(metrics["loss"]))
+    del prog
+    torch.cuda.empty_cache()
+    if out["route"] != "graph" or counts != [1, 1, 0] or not np.isfinite(out["loss"]):
+        raise AssertionError(f"projection {cell}: {out}")
+    return out
+
+
+def projection_check() -> int:
+    """Phase 5i alone, a few minutes on one card: the projection's cases,
+    its cuBLAS compute type, the oracle at t1's and vg's token shapes and
+    the count in a captured t1 step; its readings as JSON into
+    PROJECTION_JSON, then the card's name and power limit. Run it as
+    `python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.projection_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    readings = {"cublas_log": projection_cublas_log(dev), "cases": {}, "oracle": {}}
+    print(f"projection cuBLAS log: {readings['cublas_log']}", flush=True)
+    for i, (label, layers, d_t) in enumerate(PROJECTION_CASES):
+        row = readings["cases"][label] = projection_case(dev, label, layers, d_t,
+                                                         PROJECTION_SEED + i)
+        print(f"projection {label} {tuple(row['shape'])}: counted {row['counted']}; rel err "
+              f"{row['rel_err']:.3g} (fp32 form {row['plain_rel_err']:.3g}, at most "
+              f"{PROJECTION_ERR_RATIO}x), max |err| {row['max_abs_err']:.3g} (fp32 form "
+              f"{row['plain_max_abs_err']:.3g}) of max |z| {row['ref_max']:.4g}; bits equal with "
+              f"allow_bf16_reduced_precision_reduction={not row['reduced_precision_flag']}: "
+              f"{row['bits_equal_with_flag_flipped']}; device {row['device_ms']:.4f} ms (event "
+              f"loop {row['ms']:.4f}), bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+              f"{row['roofline_pct']:.1f}%), fp32 form {row['plain_ms']:.4f}; kernels "
+              f"{row['cublas_kernels']}", flush=True)
+    for i, (label, layers, d_t) in enumerate(PROJECTION_CASES):
+        readings["oracle"][label] = projection_oracle(dev, label, layers, d_t,
+                                                      PROJECTION_SEED + 10 + i)
+    row = readings["cell"] = projection_cell_count(dev, PROJECTION_CELL, PROJECTION_SEED)
+    print(f"{PROJECTION_CELL}: route {row['route']}; tensor-core projections in the warm-up, "
+          f"the capture and a replay {row['counts']}", flush=True)
+    readings["card"] = card_line(dev)
+    os.makedirs(os.path.dirname(PROJECTION_JSON), exist_ok=True)
+    with open(PROJECTION_JSON, "w") as f:
         json.dump(readings, f)
     print(readings["card"])
     return 0
@@ -3011,6 +3243,15 @@ def main() -> int:
         gelu_readings = json.load(f)
     for name, part in (("gelu_fwd", "fwd"), ("gelu_bwd", "bwd")):
         report[name] = {case: row[part] for case, row in gelu_readings["cases"].items()}
+    # ---- 5i. the selector's teacher projection on the tensor cores, in a process of its own ----
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.projection_check())"],
+        capture_output=True, text=True, timeout=1500, env=package_env())
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"projection_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(PROJECTION_JSON) as f:
+        projection = json.load(f)
     timing = mp["timing"]["shapes"]
     report["mp_rank"] = {}
     for bsz, nn_, m_ in time_mp_rank.PLAIN_SHAPES:
@@ -3704,7 +3945,7 @@ def main() -> int:
                          for key in ("step_ms", "k", "per_step", "peak_gib", "staging_s")},
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "m7": m7, "m8": m8, "oracle": oracle, "graph": graph,
-                      "mp_rank": mp, "swiglu": swiglu,
+                      "mp_rank": mp, "swiglu": swiglu, "projection": projection,
                       "measure_tools": measured_tools, "measure_s": measure_s,
                       "last_tools": last_tools, "entry_rel_err": entry_err,
                       "entry_s": entry_s,

@@ -1,8 +1,11 @@
 """The selector's fp32 copies of the teacher token stack taken in slices
-(`losses/selector.py:F32_COPY_BYTES`), as DINOv2 ViT-g's 40-layer stack
-takes them on the card: forced here by a small budget, against the one
-product that smaller stacks take. On the CPU, in fp32 and from bf16
-tokens."""
+(`losses/selector.py:F32_COPY_BYTES`), forced here by a small budget,
+against the one product that smaller stacks take; and the projection's
+route (`tensor_core_projection`): bf16 tokens on a CUDA device take one
+tensor-core product with an fp32 output, every other input the fp32 form.
+On the CPU, in fp32 and from bf16 tokens."""
+
+import types
 
 import pytest
 import torch
@@ -82,3 +85,67 @@ def test_select_and_mix_in_slices(monkeypatch):
     assert torch.equal(aux2["grassmann_d2"], aux["grassmann_d2"])
     for a, b in zip(grads2, grads):
         assert float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype, device, tensor_cores", [
+    (torch.bfloat16, "cuda", True), (torch.bfloat16, "cuda:1", True),
+    (torch.float32, "cuda", False), (torch.float16, "cuda", False),
+    (torch.bfloat16, "cpu", False), (torch.float32, "cpu", False),
+    (torch.bfloat16, "meta", False)])
+def test_projection_route_by_dtype_and_device(dtype, device, tensor_cores):
+    """The tensor-core route is taken by bf16 tokens on a CUDA device alone
+    (a CUDA-typed stand-in: the predicate reads only dtype and device)."""
+    tokens = types.SimpleNamespace(dtype=dtype, device=torch.device(device))
+    assert sel.tensor_core_projection(tokens) is tensor_cores
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_projection_is_the_fp32_form(monkeypatch, dtype):
+    """On the CPU `_project` is the fp32 product of the operands rounded to
+    the tokens' dtype, bit for bit, and counts no tensor-core projection."""
+    monkeypatch.setattr(sel, "TENSOR_CORE_PROJECTIONS", 0)
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randn((L, B * N, D_T), generator=g).to(dtype)
+    proj = torch.randn((D_S, D_T), generator=g)
+    want = tokens.float() @ proj.to(dtype).float().T
+    assert torch.equal(sel._project(tokens, proj), want)
+    assert torch.equal(sel._project_f32(tokens, proj), want)
+    assert sel.TENSOR_CORE_PROJECTIONS == 0
+
+
+def test_tensor_core_projection_is_one_bf16_product_with_an_fp32_output(monkeypatch):
+    """The route's one call: the flattened (L M, D_t) bf16 stack times the
+    bf16 proj_t^T, out_dtype fp32, no fp32 copy of the stack; its output
+    reshaped to (L, M, D_s) and counted once. A stand-in for aten::mm.dtype
+    (not on the CPU) sums the exact products in float64."""
+    calls = []
+
+    def mm(a, b, *, out_dtype):
+        calls.append((a.shape, a.dtype, a.is_contiguous(), b.shape, b.dtype, out_dtype))
+        return (a.double() @ b.double()).to(out_dtype)
+
+    monkeypatch.setattr(sel, "TENSOR_CORE_PROJECTIONS", 0)
+    monkeypatch.setattr(sel, "tensor_core_projection", lambda tokens: True)
+    monkeypatch.setattr(torch, "mm", mm)
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randn((L, B * N, D_T), generator=g).to(torch.bfloat16)
+    proj = torch.randn((D_S, D_T), generator=g)
+    z = sel._project(tokens, proj)
+    assert calls == [((L * B * N, D_T), torch.bfloat16, True, (D_T, D_S), torch.bfloat16,
+                      torch.float32)]
+    assert z.shape == (L, B * N, D_S) and z.dtype == torch.float32
+    want = (tokens.double() @ proj.to(torch.bfloat16).double().T).float()
+    assert torch.equal(z, want)
+    assert sel.TENSOR_CORE_PROJECTIONS == 1
+    # the fp32 form sums the same exact products in another order
+    assert torch.allclose(sel._project_f32(tokens, proj), z, rtol=1e-5, atol=1e-5)
+
+
+def test_select_and_mix_on_the_cpu_counts_no_tensor_core_projection(monkeypatch):
+    """A CPU `select_and_mix` on bf16 tokens takes the fp32 form: the
+    counter reads 0 after it."""
+    monkeypatch.setattr(sel, "TENSOR_CORE_PROJECTIONS", 0)
+    tokens, student, importance = _inputs(6)
+    state = sel.init_selector(3, P, D_S, D_T, device="cpu")
+    sel.select_and_mix(state, student, tokens, importance, subspace_k=8)
+    assert sel.TENSOR_CORE_PROJECTIONS == 0
