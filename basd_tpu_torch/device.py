@@ -40,7 +40,8 @@ class CapturedCall:
 
     The first call runs `fn` eagerly on a side stream (the warm-up, which
     builds the kernels, the library handles and the device constants); the
-    second captures it on that stream into a private memory pool, with
+    second releases the memory the warm-up left cached and captures it on
+    that stream into a private memory pool, with
     `generator` (if any) registered so that each replay draws anew, and
     replays it; later calls replay. A call returns what `fn` returned: the
     warm-up's own tensors, then the graph's outputs, which the next replay
@@ -81,6 +82,11 @@ class CapturedCall:
         return out
 
     def _capture(self) -> None:
+        # the warm-up's freed blocks stay cached in the default pool, which
+        # the graph's private pool cannot draw on and the allocator does
+        # not release while a capture is under way: give them back first
+        # (a 7B teacher's activations do not fit twice beside its weights)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)

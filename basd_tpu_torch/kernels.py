@@ -73,6 +73,11 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # x, out, rows, g, is_bf16, stream
         "basd_swiglu_gate": [_P] * 2 + [_L] + [_I] * 2 + [_P],
     },
+    "rope": {
+        # qkv, table, q_out, k_out, rows, n, prefix, heads, hd, scale,
+        # is_bf16, stream
+        "basd_rope_qk": [_P] * 4 + [_L] + [_I] * 4 + [_F, _I, _P],
+    },
     "gelu": {
         # x, y, n, is_bf16, stream
         "basd_gelu_fwd": [_P] * 2 + [_L, _I, _P],
@@ -98,6 +103,7 @@ LAUNCHES: dict[str, int] = {
     "swiglu_gate": 0,
     "gelu_fwd": 0,
     "gelu_bwd": 0,
+    "rope_qk": 0,
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

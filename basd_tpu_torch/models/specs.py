@@ -30,6 +30,14 @@ class ModelSpec:
     # a ViT block's MLP: "gelu" (fc2(gelu(fc1 x))) or "swiglu" (DINOv2's
     # ViT-g: fc1's packed output a | b, fc2(silu(a) * b))
     ffn: str = "gelu"
+    # a ViT's positions: "learned" (a pos_embed table added to the tokens)
+    # or "rope" (DINOv3: axial 2-D rotary positions on the patch rows' q
+    # and k, no table)
+    positions: str = "learned"
+    # register tokens after the CLS token (DINOv3: 4); never captured
+    num_register_tokens: int = 0
+    # every LayerNorm's eps (DINOv2 1e-6, DINOv3 1e-5)
+    ln_eps: float = 1e-6
 
     def num_tokens(self, img_size: int) -> int:
         """Patch tokens (CLS excluded), reference `teacher.py:94`."""
@@ -72,6 +80,18 @@ _VIT_PRESETS: dict[str, dict] = {
         embed_dim=1536, depth=40, num_heads=24, patch_size=14,
         layer_scale_init=1e-5, mlp_ratio=5.33334, ffn="swiglu",
     ),
+    # DINOv3's own teacher (`facebookresearch/dinov3` dinov3_vit7b16; the
+    # published config facebook/dinov3-vit7b16-pretrain-lvd1689m): width
+    # 4096, 40 blocks, 32 heads of 128, patch 16, 4 register tokens after
+    # CLS, axial RoPE (base 100) in place of a position table, LayerNorm
+    # eps 1e-5, a SwiGLU MLP whose packed fc1 is int(4096 * 4.0) = 16384
+    # wide (gate and up 8192 each), fc2 8192; no q/k/v bias (the fused
+    # qkv's bias is kept at zero)
+    "dinov3_vit7b16": dict(
+        embed_dim=4096, depth=40, num_heads=32, patch_size=16,
+        layer_scale_init=1e-5, mlp_ratio=4.0, ffn="swiglu", positions="rope",
+        num_register_tokens=4, ln_eps=1e-5,
+    ),
     # tiny configs for tests / smoke runs
     "vit_micro_patch4": dict(embed_dim=64, depth=4, num_heads=2, patch_size=4),
     "vit_mini_patch4": dict(embed_dim=96, depth=6, num_heads=3, patch_size=4),
@@ -84,6 +104,13 @@ _VIT_PRESETS: dict[str, dict] = {
     "dinov2_swiglu_micro_patch4": dict(
         embed_dim=64, depth=4, num_heads=2, patch_size=4,
         layer_scale_init=1e-5, mlp_ratio=5.3125, ffn="swiglu",
+    ),
+    # the DINOv3 ViT-7B's micro twin: 2 heads of 32, RoPE, 4 registers,
+    # eps 1e-5, SwiGLU (packed 256, g = 128)
+    "dinov3_micro_patch4": dict(
+        embed_dim=64, depth=4, num_heads=2, patch_size=4,
+        layer_scale_init=1e-5, mlp_ratio=4.0, ffn="swiglu", positions="rope",
+        num_register_tokens=4, ln_eps=1e-5,
     ),
 }
 
@@ -122,6 +149,9 @@ def resolve_preset(name: str) -> ModelSpec:
             patch_size=p["patch_size"],
             layer_scale_init=p.get("layer_scale_init"),
             ffn=p.get("ffn", "gelu"),
+            positions=p.get("positions", "learned"),
+            num_register_tokens=p.get("num_register_tokens", 0),
+            ln_eps=p.get("ln_eps", 1e-6),
         )
     if name in _CNN_PRESETS:
         p = _CNN_PRESETS[name]

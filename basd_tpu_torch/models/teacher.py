@@ -43,6 +43,9 @@ def build_teacher_module(
             has_cls_token=spec.has_cls_token,
             layer_scale_init=spec.layer_scale_init,
             ffn=spec.ffn,
+            positions=spec.positions,
+            num_register_tokens=spec.num_register_tokens,
+            ln_eps=spec.ln_eps,
             dtype=dtype,
         )
         return VisionTransformer(cfg, capture_layers=tuple(range(spec.depth)))

@@ -13,7 +13,13 @@ card); a ViT without one takes the einsum chain, whose normalized attention
 its importance needs. A block's MLP is `ViTConfig.ffn`'s: the GELU `Mlp`
 (its erf GELU the kernels of `ops.activations.gelu` on the card, forward and
 backward), or `SwiGLU` (DINOv2's ViT-g; its gate `silu(a) * b` is the hand-written
-kernel of `ops.activations.swiglu_gate` on the card). `ViTConfig.remat`
+kernel of `ops.activations.swiglu_gate` on the card). Positions are
+`ViTConfig.positions`: a learned table added to CLS and patches, or
+DINOv3's axial RoPE (`ops.rope.rope_qk`, the hand-written kernel on the
+card), which rotates the patch rows' q and k in each block and has no
+table. `ViTConfig.num_register_tokens` register tokens follow the CLS token;
+the prefix (CLS and registers) is left out of the captured tokens and of
+the CLS importance's columns. `ViTConfig.remat`
 recomputes each block in the backward (`torch.utils.checkpoint`), with the
 block's drop-path draws made before the checkpointed call so the
 recomputation sees the same masks.
@@ -41,6 +47,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from basd_tpu_torch.ops.activations import gelu, swiglu_gate
+from basd_tpu_torch.ops.rope import rope_qk, rope_table
 from basd_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 from basd_tpu_torch.parallel.sharding_rules import attention_split
 from basd_tpu_torch.ops.attention import (
@@ -54,6 +61,7 @@ from basd_tpu_torch.ops.attention import (
 # it to the requested stddev; torch's trunc_normal_ cuts N(0, std) instead
 _TRUNC_STD = 0.87962566103423978
 _LN_EPS = 1e-6  # flax LayerNorm default
+_POSITIONS = ("learned", "rope")
 
 
 @dataclass(frozen=True)
@@ -71,12 +79,23 @@ class ViTConfig:
     layer_scale_init: float | None = None
     # the blocks' MLP: "gelu" (`Mlp`) or "swiglu" (`SwiGLU`)
     ffn: str = "gelu"
+    # "learned" (pos_embed) or "rope" (DINOv3's axial RoPE, no table)
+    positions: str = "learned"
+    # register tokens after the CLS token (DINOv3: 4)
+    num_register_tokens: int = 0
+    # every LayerNorm's eps (DINOv2 1e-6, DINOv3 1e-5)
+    ln_eps: float = _LN_EPS
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
 
     @property
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def num_prefix(self) -> int:
+        """The rows before the patches: CLS and the register tokens."""
+        return int(self.has_cls_token) + self.num_register_tokens
 
 
 class ViTOutput(NamedTuple):
@@ -98,7 +117,7 @@ def _row_linear(x: torch.Tensor, layer: nn.Linear, dtype, mesh) -> torch.Tensor:
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(
-        x.float(), layer.normalized_shape, layer.weight, layer.bias, _LN_EPS
+        x.float(), layer.normalized_shape, layer.weight, layer.bias, layer.eps
     ).to(x.dtype)
 
 
@@ -139,10 +158,14 @@ class DropPath(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention returning (tokens, CLS importance)."""
 
-    def __init__(self, dim: int, num_heads: int, has_cls_token: bool, mesh=None):
+    def __init__(self, dim: int, num_heads: int, has_cls_token: bool, mesh=None,
+                 num_prefix: int | None = None):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
         self.has_cls_token = has_cls_token
+        # CLS and register rows: left out of the importance's columns and
+        # of the rotation
+        self.num_prefix = int(has_cls_token) if num_prefix is None else num_prefix
         # split by whole heads over the model group, or whole on every rank
         self.mesh = mesh if mesh is not None and attention_split(
             num_heads, mesh.model) else None
@@ -154,18 +177,21 @@ class Attention(nn.Module):
 
     def _cls_importance(self, q, k, scale):
         """CLS-row attention over patch keys, mean over heads, in fp32 from
-        the unscaled (B, N, D) q and k."""
+        the unscaled (B, N, D) q and k (k rotated where the model has RoPE;
+        the CLS row's q never is)."""
         b, n, d = k.shape
         heads = self.num_heads if self.mesh is None else self.num_heads // self.mesh.model
         prod = k.float() * q[:, :1].float()  # (B, N, D)
         cls_logits = prod.reshape(b, n, heads, -1).sum(-1)
         cls_logits = cls_logits.transpose(1, 2) * scale  # (B, H, N)
         if self.mesh is None:
-            return torch.softmax(cls_logits, dim=-1)[:, :, 1:].mean(dim=1)
-        part = torch.softmax(cls_logits, dim=-1)[:, :, 1:].sum(dim=1)
+            return torch.softmax(cls_logits, dim=-1)[:, :, self.num_prefix:].mean(dim=1)
+        part = torch.softmax(cls_logits, dim=-1)[:, :, self.num_prefix:].sum(dim=1)
         return reduce_from_model(part, self.mesh) / self.num_heads
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, rope: torch.Tensor | None = None):
+        """`rope`: the (2, patches, hd / 2) cos and sin table of a model
+        with RoPE (`ops.rope.rope_table`), else None."""
         b, n, _ = x.shape
         hd = self.dim // self.num_heads
         scale = hd**-0.5
@@ -174,7 +200,10 @@ class Attention(nn.Module):
         d = self.proj.in_features  # D, or D/tp under tensor parallelism
         qkv = _linear(x, self.qkv, dtype)  # (B, N, 3D)
         q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
-        q_scaled = (q.float() * scale).to(dtype)
+        if rope is None:
+            q_scaled = (q.float() * scale).to(dtype)
+        else:
+            q_scaled, k = rope_qk(qkv, rope, d // hd, self.num_prefix, scale)
         if not self.has_cls_token:
             # the importance averages the normalized attention over heads
             # and queries, which the kernel never forms: never K1 here
@@ -247,9 +276,9 @@ class Block(nn.Module):
     def __init__(self, cfg: ViTConfig, drop_path: float, mesh=None):
         super().__init__()
         d = cfg.embed_dim
-        self.norm1 = nn.LayerNorm(d, eps=_LN_EPS)
-        self.attn = Attention(d, cfg.num_heads, cfg.has_cls_token, mesh)
-        self.norm2 = nn.LayerNorm(d, eps=_LN_EPS)
+        self.norm1 = nn.LayerNorm(d, eps=cfg.ln_eps)
+        self.attn = Attention(d, cfg.num_heads, cfg.has_cls_token, mesh, cfg.num_prefix)
+        self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps)
         if cfg.ffn not in _FFN:
             raise ValueError(f"unknown ffn {cfg.ffn!r}; known: {sorted(_FFN)}")
         self.mlp = _FFN[cfg.ffn](d, int(d * cfg.mlp_ratio), mesh)
@@ -266,8 +295,8 @@ class Block(nn.Module):
         return (self.drop_path1.draw(x, train, generator, rows),
                 self.drop_path2.draw(x, train, generator, rows))
 
-    def forward(self, x, dtype, u1, u2):
-        y, importance = self.attn(_layer_norm(x, self.norm1), dtype)
+    def forward(self, x, dtype, u1, u2, rope=None):
+        y, importance = self.attn(_layer_norm(x, self.norm1), dtype, rope)
         x = x + self.drop_path1(self.ls1(y), u1)
         y = self.mlp(_layer_norm(x, self.norm2), dtype)
         x = x + self.drop_path2(self.ls2(y), u2)
@@ -292,13 +321,22 @@ class VisionTransformer(nn.Module):
                  mesh=None):
         super().__init__()
         cfg = self.config = config
+        if cfg.positions not in _POSITIONS:
+            raise ValueError(f"unknown positions {cfg.positions!r}; known: {_POSITIONS}")
+        if cfg.num_register_tokens and not cfg.has_cls_token:
+            raise ValueError("register tokens follow a CLS token")
         self.capture_layers = tuple(capture_layers)
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, d)
         if cfg.has_cls_token:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
-        n_tok = cfg.num_patches + int(cfg.has_cls_token)
-        self.pos_embed = nn.Parameter(torch.zeros(1, n_tok, d))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, d))
+        if cfg.positions == "learned":
+            n_tok = cfg.num_patches + int(cfg.has_cls_token)
+            self.pos_embed = nn.Parameter(torch.zeros(1, n_tok, d))
+        # the RoPE table by device, made at the first forward on it
+        self._rope: dict[torch.device, torch.Tensor] = {}
         self.blocks = nn.ModuleList(
             Block(
                 cfg,
@@ -308,7 +346,7 @@ class VisionTransformer(nn.Module):
             )
             for i in range(cfg.depth)
         )
-        self.norm = nn.LayerNorm(d, eps=_LN_EPS)
+        self.norm = nn.LayerNorm(d, eps=cfg.ln_eps)
         if cfg.num_classes > 0:
             self.head = nn.Linear(d, cfg.num_classes)
 
@@ -317,7 +355,7 @@ class VisionTransformer(nn.Module):
         """The JAX package's initializers, drawn from a CPU generator seeded
         with `seed` (the same weights on every device): fan-in truncated
         normal for linear kernels, fan-out normal for the patch conv,
-        truncated normal(0.02) for cls/pos, zero biases."""
+        truncated normal(0.02) for cls, registers and pos, zero biases."""
         g = torch.Generator().manual_seed(seed)
 
         def draw(p, fill):
@@ -342,7 +380,24 @@ class VisionTransformer(nn.Module):
                 mod.gamma.fill_(mod.init)
         if self.config.has_cls_token:
             draw(self.cls_token, lambda w: _trunc_normal_(w, 0.02, g))
-        draw(self.pos_embed, lambda w: _trunc_normal_(w, 0.02, g))
+        if self.config.num_register_tokens:
+            draw(self.register_tokens, lambda w: _trunc_normal_(w, 0.02, g))
+        if self.config.positions == "learned":
+            draw(self.pos_embed, lambda w: _trunc_normal_(w, 0.02, g))
+
+    def rope_table(self, device) -> torch.Tensor | None:
+        """The (2, patches, head_dim / 2) fp32 cos and sin of the patch
+        grid's angles on `device` (`ops.rope.rope_table`), made once a
+        device; None for learned positions."""
+        cfg = self.config
+        if cfg.positions != "rope":
+            return None
+        device = torch.device(device)
+        if device not in self._rope:
+            grid = cfg.img_size // cfg.patch_size
+            self._rope[device] = rope_table(
+                grid, grid, cfg.embed_dim // cfg.num_heads).to(device)
+        return self._rope[device]
 
     def forward(
         self,
@@ -368,21 +423,38 @@ class VisionTransformer(nn.Module):
         n = x.shape[1]
         if cfg.has_cls_token:
             x = torch.cat([self.cls_token.to(dt).expand(b, 1, -1), x], dim=1)
-        x = x + self.pos_embed.to(dt)
+        if cfg.positions == "learned":
+            x = x + self.pos_embed.to(dt)
+        if cfg.num_register_tokens:
+            reg = self.register_tokens.to(dt).expand(b, -1, -1)
+            x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
+        rope = self.rope_table(x.device)
+        prefix = cfg.num_prefix
 
         remat = cfg.remat and torch.is_grad_enabled()
         tokens, imps = [], []
+        # without a gradient (a frozen teacher) each captured layer is
+        # written into one stack as its block ends, so no block's whole
+        # residual stream outlives the next block (40 streams of DINOv3's
+        # ViT-7B at batch 256 are 15.7 GiB beside a 15.3 GiB stack)
+        captured = [i for i in range(cfg.depth) if i in self.capture_layers]
+        stack = None
+        if captured and not torch.is_grad_enabled():
+            stack = x.new_empty((len(captured), b, x.shape[1] - prefix, cfg.embed_dim))
         for i, blk in enumerate(self.blocks):
             draws = blk.draw(x, train, generator, batch_rows)
             if remat:
                 # the body draws nothing from any generator, so no RNG
                 # state needs to be kept for the recomputation
-                x, importance = checkpoint(blk, x, dt, *draws, use_reentrant=False,
+                x, importance = checkpoint(blk, x, dt, *draws, rope, use_reentrant=False,
                                            preserve_rng_state=False)
             else:
-                x, importance = blk(x, dt, *draws)
+                x, importance = blk(x, dt, *draws, rope)
             if i in self.capture_layers:
-                tokens.append(x[:, 1:] if cfg.has_cls_token else x)
+                if stack is None:
+                    tokens.append(x[:, prefix:] if prefix else x)
+                else:
+                    stack[len(imps)].copy_(x[:, prefix:])
                 imps.append(importance)
 
         x = _layer_norm(x, self.norm)
@@ -391,8 +463,9 @@ class VisionTransformer(nn.Module):
             logits = F.linear(pooled.float(), self.head.weight, self.head.bias)
         else:
             logits = pooled.float()
-        if tokens:
-            tok, imp = torch.stack(tokens), torch.stack(imps)
+        if imps:
+            tok = stack if stack is not None else torch.stack(tokens)
+            imp = torch.stack(imps)
         else:
             tok = x.new_zeros((0, b, n, cfg.embed_dim))
             imp = x.new_zeros((0, b, n), dtype=torch.float32)

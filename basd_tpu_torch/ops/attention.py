@@ -27,14 +27,15 @@ from basd_tpu_torch import kernels
 
 MAX_FUSED_SEQ = 512
 MAX_FUSED_HEAD_DIM = 128
-MAX_FUSED_WIDTH = 2048
 
 
 def supports_fused(n: int, d: int, head_dim: int) -> bool:
-    """Static shape gate of the kernels (`ops/attention.py:supports_fused`)."""
+    """Static shape gate of the kernels (`ops/attention.py:supports_fused`),
+    without the TPU kernel's width cap of 2048: a Pallas block holds a whole
+    (N, D) row slab in VMEM, while a CTA here holds one head's rows, so the
+    width bounds nothing (DINOv3's ViT-7B runs D = 4096 at hd = 128)."""
     return (
         n <= MAX_FUSED_SEQ
-        and d <= MAX_FUSED_WIDTH
         and head_dim <= MAX_FUSED_HEAD_DIM
         and head_dim % 16 == 0
         and d % head_dim == 0

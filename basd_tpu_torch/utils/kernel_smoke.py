@@ -6,9 +6,11 @@ runs each kernel once at a tiny real shape on the card and holds its
 result against the kernel's plain torch version on the same inputs:
 attention forward (K1) and backward (K2), the TrivialAugment warp (K4),
 the Jacobi eigh (K3, its ping-pong route), the MP rank (its one-CTA
-route) and the SwiGLU gate (both routes). A kernel that fails to build, to launch or to agree raises a
-`RuntimeError` that names it and carries the original error. Nothing is switched: the port has no fallback, so a
-run that cannot use a kernel stops here rather than inside its first step.
+route), the SwiGLU gate (both routes) and the RoPE rotation (both
+routes). A kernel that fails to build, to launch or to agree raises a
+`RuntimeError` that names it and carries the original error. Nothing is
+switched: the port has no fallback, so a run that cannot use a kernel
+stops here rather than inside its first step.
 On the CPU the plain versions run, so there is nothing to check.
 
 The checks build their libraries through `kernels.library`, under
@@ -160,6 +162,24 @@ def _swiglu_gate(device: torch.device) -> str:
     return "within one ulp"
 
 
+def _rope(device: torch.device) -> str:
+    """The rotation on its vec route (bf16, head_dim 16) and its scalar
+    route (fp32, head_dim 12), 5 prefix rows and a 2 x 2 grid, against the
+    plain version on the same packed qkv: bit for bit (the kernel rounds
+    each op as the plain version's torch ops do)."""
+    from basd_tpu_torch.ops.rope import rope_qk, rope_qk_plain, rope_table
+
+    rng = np.random.default_rng(0)
+    pairs = []
+    for hd, dtype in ((16, torch.bfloat16), (12, torch.float32)):
+        qkv = torch.from_numpy(rng.standard_normal((3, 9, 3 * 2 * hd)).astype(np.float32))
+        qkv = qkv.to(device=device, dtype=dtype)
+        table = rope_table(2, 2, hd).to(device)
+        pairs += zip(rope_qk(qkv, table, 2, 5, hd ** -0.5),
+                     rope_qk_plain(qkv, table, 2, 5, hd ** -0.5))
+    return _bit_for_bit(pairs, "rope_qk")
+
+
 # (name, check): each check launches its kernels on `device` and returns
 # what it read, or raises
 KERNEL_CHECKS = (
@@ -169,6 +189,7 @@ KERNEL_CHECKS = (
     ("jacobi", _jacobi),
     ("mp_rank", _mp_rank),
     ("swiglu_gate", _swiglu_gate),
+    ("rope_qk", _rope),
 )
 
 

@@ -129,6 +129,16 @@ Phases, in order; any failure raises and the exit code is not 0:
      planted inputs at t1's and vg's token shapes, MP ranks equal, one
      projection counted (`selector.TENSOR_CORE_PROJECTIONS`); and the
      t1 cell's program counting 1, 1, 0 in its warm-up, capture and replay;
+  5j. the RoPE rotation (`rope_check()` in a process of its own): the
+     kernel bit for bit its plain version at DINOv3 ViT-7B's teacher
+     (256, 201, 12,288) bf16, in fp32, at the micro teacher's shape, on an
+     unaligned qkv and at head_dim 12 (the scalar routes), timed beside the
+     plain version, torch's own ops on the published formula and its bound;
+     K1 at head_dim 128 at the same teacher shape against its plain version
+     and SDPA, timed; one `dinov3_vit7b16` forward at batch 256 (wall ms,
+     40 rotations, 40 K1 and 40 gates, peak memory); the Table-1 step with
+     that teacher: route graph, a replay's launches (40 rotations, 40
+     gates, K1 64), peak memory and stage spans;
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
@@ -226,10 +236,11 @@ BF16_ULPS_8 = 8 * 2.0**-8
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
 # in the backward check's forward, K2, K4, K3, the MP-rank kernel, the
-# SwiGLU gate on each of its two routes; no GELU kernel
+# SwiGLU gate and the RoPE rotation on each of their two routes; no GELU
+# kernel
 KERNEL_CHECK_LAUNCHES = {"attention_fwd": 2, "attention_bwd": 1, "jacobi_eigh": 1,
                          "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1,
-                         "swiglu_gate": 2, "gelu_fwd": 0, "gelu_bwd": 0}
+                         "swiglu_gate": 2, "gelu_fwd": 0, "gelu_bwd": 0, "rope_qk": 2}
 
 
 def table1_inputs(dev):
@@ -605,14 +616,15 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     view, the MP-rank kernel once (the teacher layers' ranks at n = D_s)
     inside its gate, the SwiGLU gate in every block of a SwiGLU teacher,
     the GELU forward in every GELU MLP of the teacher and of the student (a
-    student's twice under remat) and the GELU backward in the student's."""
+    student's twice under remat), the GELU backward in the student's and
+    the RoPE rotation in every block of a RoPE teacher."""
     from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.ops import attention as attn
     from basd_tpu_torch.spectral.ops import use_jacobi, use_mp_kernel
 
     def fused_blocks(c):
         ok = c.has_cls_token and attn.supports_fused(
-            c.num_patches + 1, c.embed_dim, c.embed_dim // c.num_heads)
+            c.num_patches + c.num_prefix, c.embed_dim, c.embed_dim // c.num_heads)
         return c.depth if ok else 0
 
     student_blocks = fused_blocks(scfg)
@@ -627,7 +639,9 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
             "swiglu_gate": tch.spec.depth if tch.spec.family == "vit"
             and tch.spec.ffn == "swiglu" else 0,
             "gelu_fwd": student_gelu * (2 if scfg.remat else 1) + gelu_mlps(tch.module),
-            "gelu_bwd": student_gelu}
+            "gelu_bwd": student_gelu,
+            "rope_qk": tch.spec.depth if tch.spec.family == "vit"
+            and tch.spec.positions == "rope" else 0}
 
 
 def stage_table3(dev) -> dict:
@@ -823,7 +837,7 @@ def graph_check() -> int:
     dev = torch.device("cuda", 0)
     per_step = {"attention_fwd": 24, "attention_bwd": 12, "jacobi_eigh": 3, "warp": 1,
                 "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0,
-                "gelu_fwd": 24, "gelu_bwd": 12}
+                "gelu_fwd": 24, "gelu_bwd": 12, "rope_qk": 0}
     readings = graph_phase(dev, stage_table3(dev), per_step, MAIN_STEPS)
     print(json.dumps(readings))
     print(card_line(dev))
@@ -1160,13 +1174,15 @@ def vitg14_forward_check(dev, tch) -> dict:
     return out
 
 
-def vitg14_step_check(dev, tch) -> dict:
+def teacher_step_check(dev, tch) -> dict:
     """The Table-1 step (ViT-S/16 student at 224 px, batch 256 from 256 px,
-    K = 96, augment, remat) with the ViT-g teacher through
-    `make_train_step`: its route, the launches of each call and of one
-    replay (`per_step_launches`: 40 gates), the step's peak memory, the
-    wall ms of the replays and the median of each stage's span over
-    VITG_SPAN_STEPS more replays (`step_fn.spans`, unprofiled)."""
+    K = 96, augment, remat) with a 40-block SwiGLU teacher (ViT-g/14 or
+    DINOv3 ViT-7B/16) through `make_train_step`: its route (`graph`), the
+    launches of each call and of one replay (`per_step_launches`: K1 in
+    the student's 12 blocks twice and in each teacher block, a gate a
+    teacher block, a rotation a block of a RoPE teacher), the step's peak
+    memory, the wall ms of the replays and the median of each stage's span
+    over VITG_SPAN_STEPS more replays (`step_fn.spans`, unprofiled)."""
     import torch
 
     from basd_tpu_torch import kernels
@@ -1218,9 +1234,12 @@ def vitg14_step_check(dev, tch) -> dict:
                wall_ms=wall_ms, replay_ms=float(np.median(wall_ms[2:])),
                peak_gib=peak_gib, span_ms=span_ms,
                loss=float(metrics["loss"]), mp_ranks=metrics["mp_ranks"].tolist())
-    if (step_fn.route != "graph" or step_fn.launches != want or want["swiglu_gate"] != 40
+    depth = tch.spec.depth
+    rope = depth if tch.spec.positions == "rope" else 0
+    if (step_fn.route != "graph" or step_fn.launches != want or want["swiglu_gate"] != depth
+            or want["rope_qk"] != rope or want["attention_fwd"] != 2 * scfg.depth + depth
             or any(c != want for c in calls[2:]) or not np.isfinite(out["loss"])):
-        raise AssertionError(f"ViT-g train step: {out}")
+        raise AssertionError(f"{tch.spec.name} train step: {out}")
     return out
 
 
@@ -1272,7 +1291,7 @@ def swiglu_check() -> int:
           f"{fwd['gate_launches']} gates; teacher loaded in {readings['load_teacher_s']:.1f} s",
           flush=True)
     torch.cuda.empty_cache()
-    readings["step"] = vitg14_step_check(dev, tch)
+    readings["step"] = teacher_step_check(dev, tch)
     step = readings["step"]
     print(f"ViT-g Table-1 step: route {step['route']} ({step['reason']}); launches a replay "
           f"{step['replay_launches']}; replays {step['replay_ms']:.1f} ms (wall, median); "
@@ -1674,6 +1693,223 @@ def projection_check() -> int:
     readings["card"] = card_line(dev)
     os.makedirs(os.path.dirname(PROJECTION_JSON), exist_ok=True)
     with open(PROJECTION_JSON, "w") as f:
+        json.dump(readings, f)
+    print(readings["card"])
+    return 0
+
+
+# phase 5j: the RoPE rotation (`csrc/rope.cu`) and K1 at head_dim 128, at
+# DINOv3 ViT-7B's teacher shape (256 images, 201 rows: 196 patches, CLS
+# and 4 registers, D 4096, 32 heads of 128); each RoPE case (label, batch,
+# rows, heads, head_dim, dtype, offset): `offset` elements into its buffer
+# (1: an unaligned qkv, the scalar route)
+ROPE_JSON = os.path.join("chiprun_out", "rope.json")
+ROPE_PREFIX = 5
+ROPE_CASES = (("ViT-7B teacher", 256, 201, 32, 128, "bfloat16", 0),
+              ("ViT-7B teacher fp32", 64, 201, 32, 128, "float32", 0),
+              ("micro teacher", 256, 21, 2, 32, "bfloat16", 0),
+              ("unaligned", 64, 201, 32, 128, "bfloat16", 1),
+              ("head_dim 12 fp32", 64, 21, 4, 12, "float32", 0))
+ROPE_SEED = 3000000047
+ROPE_FORWARD_REPS = 3
+
+
+def rope_case(dev, label, b, n, heads, hd, dtype_name, offset, seed) -> dict:
+    """The kernel on a seeded packed qkv against its plain version (bit for
+    bit: every op rounds as the plain version's), timed by an event loop and
+    by device time alone beside the plain version and torch's own bf16 ops
+    on the published formula, with its bound (q and k read and written, 4
+    B N D elements, over the memory bandwidth)."""
+    import torch
+
+    from basd_tpu_torch.ops.rope import rope_qk, rope_qk_plain, rope_route, rope_table
+    from basd_tpu_torch.tools.timing import device_ms, kernel_ms
+
+    dtype = getattr(torch, dtype_name)
+    d = heads * hd
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    numel = b * n * 3 * d
+    buf = (2.0 * torch.randn(numel + offset, generator=gen, device=dev)).to(dtype)
+    qkv = buf[offset:].view(b, n, 3 * d)
+    grid = int(round((n - ROPE_PREFIX) ** 0.5))
+    table = rope_table(grid, grid, hd).to(dev)
+    scale = hd ** -0.5
+    got = rope_qk(qkv, table, heads, ROPE_PREFIX, scale)
+    want = rope_qk_plain(qkv, table, heads, ROPE_PREFIX, scale)
+    differing = sum(int((g != w).sum()) for g, w in zip(got, want))
+    if differing:
+        raise AssertionError(f"rope_qk {label}: {differing} values differ from the plain "
+                             f"version (bit for bit required)")
+    cos, sin = table.tile(1, 1, 2).to(dtype)
+
+    def published():  # q cos + rotate_half(q) sin in the tensor's dtype, per head
+        out = []
+        for t in (qkv[..., :d], qkv[..., d:2 * d]):
+            p = t[:, ROPE_PREFIX:].reshape(b, n - ROPE_PREFIX, heads, hd)
+            half = torch.cat([-p[..., hd // 2:], p[..., :hd // 2]], dim=-1)
+            out.append(p * cos[:, None] + half * sin[:, None])
+        return out
+
+    bound_ms = 4 * b * n * d * qkv.element_size() / HBM_BYTES_PER_S * 1e3
+    row = dict(route=rope_route(qkv, heads, *got), differing=differing, max_abs_err=0.0,
+               ms=device_ms(lambda: rope_qk(qkv, table, heads, ROPE_PREFIX, scale), dev),
+               device_ms=kernel_ms(lambda: rope_qk(qkv, table, heads, ROPE_PREFIX, scale), dev),
+               plain_ms=device_ms(lambda: rope_qk_plain(qkv, table, heads, ROPE_PREFIX, scale),
+                                  dev),
+               library_ms=device_ms(published, dev), library_device_ms=kernel_ms(published, dev),
+               bound_ms=bound_ms, bound_by="bytes")
+    row["roofline_pct"] = 100.0 * bound_ms / row["device_ms"]
+    return row
+
+
+def k1_hd128_case(dev, seed) -> dict:
+    """K1 at the ViT-7B teacher's (256, 201, 4096), 32 heads of 128, bf16, on
+    the RoPE kernel's q and k and a view of the packed qkv as v (the model's
+    operands): against its plain version (bf16 attention tolerance) and
+    against SDPA, timed beside both, with its bound (q, k, v read, o
+    written, or 4 B H N^2 hd FLOPs at the bf16 peak)."""
+    import torch
+    import torch.nn.functional as F
+
+    from basd_tpu_torch.ops.attention import attention_forward_plain, fused_attention
+    from basd_tpu_torch.ops.rope import rope_qk, rope_table
+    from basd_tpu_torch.tools.timing import device_ms, kernel_ms
+    from basd_tpu_torch.utils.kernel_smoke import BF16_ATTENTION_TOL
+
+    b, n, heads, hd = 256, 201, 32, 128
+    d = heads * hd
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((b, n, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k = rope_qk(qkv, rope_table(14, 14, hd).to(dev), heads, ROPE_PREFIX, hd ** -0.5)
+    v = qkv[..., 2 * d:]
+    o = fused_attention(q, k, v, hd)
+    want = attention_forward_plain(q, k, v, hd)[0]
+    split = lambda x: x.reshape(b, n, heads, hd).transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), scale=1.0)
+    ref = sdpa().transpose(1, 2).reshape(b, n, d)
+    rel = lambda got, w: float((got.float() - w.float()).abs().max() / w.float().abs().max())
+    row = dict(rel_err=rel(o, want), sdpa_rel_err=rel(o, ref), tol=BF16_ATTENTION_TOL,
+               max_abs_err=float((o.float() - want.float()).abs().max()))
+    if not row["rel_err"] <= BF16_ATTENTION_TOL:
+        raise AssertionError(f"K1 at head_dim 128: {row}")
+    flops = 4 * b * heads * n * n * hd
+    nbytes = 4 * b * n * d * 2
+    bound_ms = max(flops / 989e12, nbytes / HBM_BYTES_PER_S) * 1e3
+    row.update(ms=device_ms(lambda: fused_attention(q, k, v, hd), dev),
+               device_ms=kernel_ms(lambda: fused_attention(q, k, v, hd), dev),
+               plain_ms=device_ms(lambda: attention_forward_plain(q, k, v, hd), dev, reps=3),
+               library_ms=device_ms(sdpa, dev), library_device_ms=kernel_ms(sdpa, dev),
+               bound_ms=bound_ms,
+               bound_by="FLOPs" if flops / 989e12 > nbytes / HBM_BYTES_PER_S else "bytes")
+    row["roofline_pct"] = 100.0 * bound_ms / row["device_ms"]
+    return row
+
+
+def dinov3_forward_case(dev):
+    """The `dinov3_vit7b16` teacher at batch 256 on seeded random weights
+    (made on the card; LayerScale 1): its forward's wall ms (median of
+    ROPE_FORWARD_REPS after a warm-up), the launches of one forward (40
+    rotations, 40 K1 at head_dim 128, 40 gates) and the peak memory of the
+    weights and one forward. Returns the readings and the teacher."""
+    import torch
+
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.models.specs import resolve_preset
+    from basd_tpu_torch.models.teacher import Teacher, build_teacher_module, extract_intermediates
+
+    spec = resolve_preset("dinov3_vit7b16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.device("meta"):
+        module = build_teacher_module(spec, 224)
+    module = module.to_empty(device=dev).eval().requires_grad_(False)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.ndim >= 2:
+                p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5, generator=gen)
+            elif name.endswith(("norm1.weight", "norm2.weight", "norm.weight", "gamma")):
+                p.fill_(1.0)
+            else:
+                p.zero_()
+    tch = Teacher(spec=spec, module=module, img_size=224, num_tokens=196,
+                  mean=spec.norm_mean, std=spec.norm_std)
+    x = torch.randn((256, 224, 224, 3), generator=gen, device=dev)
+    extract_intermediates(tch, x)  # warm-up
+    wall, launches = [], None
+    for _ in range(ROPE_FORWARD_REPS):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        tokens, importance = extract_intermediates(tch, x)
+        torch.cuda.synchronize(dev)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                    if kernels.LAUNCHES[k] > before[k]}
+        del tokens, importance
+    out = dict(wall_ms=wall, forward_ms=float(np.median(wall)), launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               weights_gib=sum(p.numel() * 4 for p in module.parameters()) / 2**30)
+    want = {"rope_qk": 40, "attention_fwd": 40, "swiglu_gate": 40}
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"ViT-7B forward launches {launches}, want {want}")
+    torch.cuda.empty_cache()
+    return out, tch
+
+
+def rope_check() -> int:
+    """Phase 5j alone, a few minutes on one card: the kernels built, the
+    RoPE cases, K1 at head_dim 128 at the ViT-7B teacher's shape, one
+    `dinov3_vit7b16` forward at batch 256 and the Table-1 step with that
+    teacher (`teacher_step_check`); its readings as JSON into
+    ROPE_JSON, then the card's name and power limit. Run it as
+    `python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.rope_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(kernels.build_all().get("rope", ""), flush=True)  # registers, spills
+    dev = torch.device("cuda", 0)
+    before = dict(kernels.LAUNCHES)
+    readings = {"rope": {}}
+    for i, (label, b, n, heads, hd, dtype_name, offset) in enumerate(ROPE_CASES):
+        case = f"{label} ({b}, {n}, {3 * heads * hd}) {dtype_name}"
+        row = rope_case(dev, label, b, n, heads, hd, dtype_name, offset, ROPE_SEED + i)
+        readings["rope"][case] = row
+        print(f"kernel rope_qk {case}: route {row['route']}, bit for bit the plain version; "
+              f"ms {row['ms']:.4f} (device {row['device_ms']:.4f}), bound {row['bound_ms']:.4f} "
+              f"({row['roofline_pct']:.1f}%), plain {row['plain_ms']:.4f}, torch's ops "
+              f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f})", flush=True)
+        torch.cuda.empty_cache()
+    row = readings["k1_hd128"] = k1_hd128_case(dev, ROPE_SEED)
+    print(f"kernel attention_fwd ViT-7B teacher B=256 N=201 D=4096 H=32 bfloat16: rel err "
+          f"{row['rel_err']:.3g} (tol {row['tol']}), against SDPA {row['sdpa_rel_err']:.3g}; ms "
+          f"{row['ms']:.4f} (device {row['device_ms']:.4f}), bound {row['bound_ms']:.4f} "
+          f"({row['bound_by']}, {row['roofline_pct']:.1f}%), plain {row['plain_ms']:.4f}, sdpa "
+          f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f})", flush=True)
+    torch.cuda.empty_cache()
+    readings["launches"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    fwd, tch = dinov3_forward_case(dev)
+    readings["forward"] = fwd
+    print(f"dinov3_vit7b16 forward at batch 256: {fwd['forward_ms']:.1f} ms (wall, median of "
+          f"{ROPE_FORWARD_REPS}); launches {fwd['launches']}; peak {fwd['peak_gib']:.2f} GiB "
+          f"(weights {fwd['weights_gib']:.2f})", flush=True)
+    step = readings["step"] = teacher_step_check(dev, tch)
+    print(f"DINOv3 ViT-7B Table-1 step: route {step['route']} ({step['reason']}); launches a "
+          f"replay {step['replay_launches']}; replays {step['replay_ms']:.1f} ms (wall, median); "
+          f"peak {step['peak_gib']:.2f} GiB; loss {step['loss']:.5f}; stage spans (median ms "
+          f"of {VITG_SPAN_STEPS} replays) {step['span_ms']}", flush=True)
+    del tch
+    torch.cuda.empty_cache()
+    readings["card"] = card_line(dev)
+    os.makedirs(os.path.dirname(ROPE_JSON), exist_ok=True)
+    with open(ROPE_JSON, "w") as f:
         json.dump(readings, f)
     print(readings["card"])
     return 0
@@ -2230,14 +2466,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
     # the kernels' start-up check as a user runs it alone: one PASS line per
-    # kernel of the train path (K1, K2, K4, K3, the MP rank, the SwiGLU gate
-    # at tiny shapes against their plain versions) in a process of its own
+    # kernel of the train path (K1, K2, K4, K3, the MP rank, the SwiGLU gate,
+    # the RoPE rotation at tiny shapes against their plain versions) in a
+    # process of its own
+    from basd_tpu_torch.utils.kernel_smoke import KERNEL_CHECKS
+
     env = package_env()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "basd_tpu_torch.tools.smoke_kernels"],
                           capture_output=True, text=True, timeout=300, env=env)
     passes = [line for line in proc.stdout.splitlines() if line.startswith("PASS ")]
-    if proc.returncode != 0 or len(passes) != 6 or "ALL PASS" not in proc.stdout:
+    if (proc.returncode != 0 or len(passes) != len(KERNEL_CHECKS)
+            or "ALL PASS" not in proc.stdout):
         raise AssertionError(f"smoke_kernels exited {proc.returncode}:\n{proc.stdout}"
                              f"\n{proc.stderr[-4000:]}")
     print(f"smoke_kernels: {time.perf_counter() - t0:.1f} s, {'; '.join(passes)}")
@@ -3027,7 +3267,7 @@ def main() -> int:
     table3 = {"attention_fwd": 24, "attention_bwd": 12,
               "jacobi_eigh": 3 if k3_on_path else 0, "warp": 1,
               "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0,
-              "gelu_fwd": 24, "gelu_bwd": 12}
+              "gelu_fwd": 24, "gelu_bwd": 12, "rope_qk": 0}
     if per_step_launches(cfg, teacher, points, k_cal, True) != table3:
         raise AssertionError(f"Table-3 launches per step "
                              f"{per_step_launches(cfg, teacher, points, k_cal, True)}")
@@ -3252,6 +3492,20 @@ def main() -> int:
         raise AssertionError(f"projection_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     with open(PROJECTION_JSON) as f:
         projection = json.load(f)
+    # ---- 5j. the RoPE rotation, K1 at head_dim 128 and a ViT-7B forward ----
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.rope_check())"],
+        capture_output=True, text=True, timeout=1200, env=package_env())
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"rope_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(ROPE_JSON) as f:
+        rope_readings = json.load(f)
+    report["rope_qk"] = rope_readings["rope"]
+    report["attention_fwd"]["ViT-7B teacher B=256 N=201 D=4096 H=32 bfloat16"] = \
+        rope_readings["k1_hd128"]
+    path_launches["rope_cases"] = rope_readings["launches"]
+    path_launches["dinov3_step"] = rope_readings["step"]["launches"]
     timing = mp["timing"]["shapes"]
     report["mp_rank"] = {}
     for bsz, nn_, m_ in time_mp_rank.PLAIN_SHAPES:
@@ -3909,11 +4163,16 @@ def main() -> int:
         "gelu_bwd": ("basd_tpu_torch/csrc/gelu.cu",
                      "none (basd_tpu/ops/activations.py, fused by XLA)",
                      "t1 student (50432, 1536) bfloat16"),
+        "rope_qk": ("basd_tpu_torch/csrc/rope.cu",
+                    "none (the JAX package has no rotary positions)",
+                    "ViT-7B teacher (256, 201, 12288) bfloat16"),
     }
     # each kernel's launches on the path it serves: the train step for
-    # K1-K4, the spectral tuner for K5, the attention probe for K6
+    # K1-K4, the spectral tuner for K5, the attention probe for K6, the
+    # ViT-g step for the gate, the DINOv3 ViT-7B step for the rotation
     own_path = {"jacobi_eigvals": "tune_spectral",
-                "attn_probe": "probe_attn_internals", "swiglu_gate": "vitg14_step"}
+                "attn_probe": "probe_attn_internals", "swiglu_gate": "vitg14_step",
+                "rope_qk": "dinov3_step"}
     measured = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                 "bound_ms", "bound_by",
                 "max_abs_err", "rel_err", "eig6_err", "eig_err", "recon_err",
@@ -3946,6 +4205,7 @@ def main() -> int:
                       "table1_intrinsic_dim": idim, "table1_derived_arch": arch,
                       "m7": m7, "m8": m8, "oracle": oracle, "graph": graph,
                       "mp_rank": mp, "swiglu": swiglu, "projection": projection,
+                      "rope": rope_readings,
                       "measure_tools": measured_tools, "measure_s": measure_s,
                       "last_tools": last_tools, "entry_rel_err": entry_err,
                       "entry_s": entry_s,

@@ -126,9 +126,15 @@ def test_backward_plain_formula_matches_autograd_of_softmax():
 
 
 def test_supports_fused_gate_matches_jax():
+    """The JAX package's gate up to its width cap of 2048 (a Pallas block
+    holds the whole (N, D) slab in VMEM); above it the port's kernels, one
+    head a CTA, take any width: DINOv3's ViT-7B teacher at D = 4096."""
     for n, d, hd in [(65, 192, 64), (5, 768, 64), (513, 192, 64),
-                     (65, 192, 24), (65, 4096, 128), (512, 2048, 128)]:
+                     (65, 192, 24), (512, 2048, 128)]:
         assert tattn.supports_fused(n, d, hd) == jattn.supports_fused(n, d, hd)
+    for n, d, hd in [(65, 4096, 128), (201, 4096, 128)]:
+        assert tattn.supports_fused(n, d, hd) and not jattn.supports_fused(n, d, hd)
+    assert not tattn.supports_fused(513, 4096, 128)
 
 
 class _StandIn:

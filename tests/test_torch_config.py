@@ -45,7 +45,8 @@ def test_config_files_are_byte_copies(name):
 
 # the port's own experiments, beside the copies: teachers the JAX package
 # does not build
-PORT_ONLY = ["experiment/basd_imagenet_dinov2_vitg14.yaml"]
+PORT_ONLY = ["experiment/basd_imagenet_dinov2_vitg14.yaml",
+             "experiment/basd_imagenet_dinov3_vit7b16.yaml"]
 
 
 def test_every_config_file_is_copied():

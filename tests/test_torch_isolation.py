@@ -236,6 +236,7 @@ def test_every_kernel_has_a_launch_counter_and_a_library():
 
     assert set(kernels.LAUNCHES) == {
         "attention_fwd", "attention_bwd", "jacobi_eigh", "warp",
-        "jacobi_eigvals", "attn_probe", "mp_rank", "swiglu_gate", "gelu_fwd", "gelu_bwd"}
+        "jacobi_eigvals", "attn_probe", "mp_rank", "swiglu_gate", "gelu_fwd", "gelu_bwd",
+        "rope_qk"}
     for name in kernels._SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists(), name
