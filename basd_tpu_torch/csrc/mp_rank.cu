@@ -22,7 +22,11 @@
 //      symmetric-packed) matrix;
 //   3. the multi-shift bracket of the eigenvalues of order (n - 1) / 2 and
 //      n / 2: the Gershgorin interval widened by 1% and 1e-30, 128 shifts
-//      at (s + 1) / 129 of it, 3 rounds; each shift's count from the LDL^T
+//      at (s + 1) / 129 of it, 7 rounds (the JAX package runs 3, which
+//      leave the bracket 5e-7 of the span wide: far wider than the
+//      median's fp32 spacing where the top eigenvalue lies 1e3 times the
+//      median or more, as an uncentered Gram's does; 129^7 = 2^49 reaches
+//      that spacing up to 2^26 times); each shift's count from the LDL^T
 //      recurrence d_i = (a_i - x) - b_{i-1}^2 / d_{i-1}, |d| kept at least
 //      sqrt(fp32 tiny) * max|a_i|, sign kept;
 //   4. sigma^2 the mean of the two, lambda_+ = sigma^2 (1 + sqrt(n / m))^2
@@ -37,7 +41,7 @@
 // What bounds it here: neither bytes (one read of the Gram: 0.53 us at
 // (12, 192, 192) at 3.35 TB/s) nor FLOPs (4/3 n^3 a matrix, A v and the
 // symmetric update of one triangle: 1.7 us at 67 TFLOP/s fp32), but the
-// chain of n - 2 dependent reflector steps and then 4 dependent Sturm
+// chain of n - 2 dependent reflector steps and then 8 dependent Sturm
 // passes of n steps, each reflector step behind two barriers, its work a
 // few hundred dependent shared-memory accesses a warp. So the design keeps each matrix
 // on chip for the whole reduction and a step's barriers to two:
@@ -74,7 +78,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 4;               // rows a warp updates at once
 constexpr int kShifts = 128;
-constexpr int kRounds = 3;
+constexpr int kRounds = 7;  // spectral/tridiag.py:BRACKET_ROUNDS
 constexpr int kMinN = 8;
 constexpr size_t kSmemLimit = 232448;   // a CTA's dynamic shared memory
 constexpr unsigned kFull = 0xffffffffu;

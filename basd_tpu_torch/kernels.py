@@ -84,6 +84,12 @@ _SIGNATURES: dict[str, dict[str, list]] = {
         # dy, x, dx, n, is_bf16, stream
         "basd_gelu_bwd": [_P] * 3 + [_L, _I, _P],
     },
+    "layernorm": {
+        # x, weight, bias, y, rows, D, eps, is_bf16, stream
+        "basd_layernorm_fwd": [_P] * 4 + [_L, _I, _F, _I, _P],
+        # x, weight, bias, y, D, is_bf16: the route the call would take
+        "basd_layernorm_route": [_P] * 4 + [_I, _I],
+    },
     "spans": {
         # flag, ring, slot, boundary, width, steps, closing, stream: the
         # train step's span stamps (utils/spans.py), no ported kernel and
@@ -104,6 +110,7 @@ LAUNCHES: dict[str, int] = {
     "gelu_fwd": 0,
     "gelu_bwd": 0,
     "rope_qk": 0,
+    "layernorm": 0,
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,9 @@ attention importance) so no hooks are needed. Parameters are fp32 with
 timm/DINOv2 state-dict keys; every layer casts its inputs and weights to
 `ViTConfig.dtype` (bf16 on the main path) as flax's `dtype=` does, while
 LayerNorm statistics, GELU, the softmax and the CLS importance run in fp32
-and the classifier head in fp32. Images are (B, H, W, 3), as in the JAX
+and the classifier head in fp32. A LayerNorm that autograd does not need
+(the frozen teacher's, an eval forward's) is the one-pass kernel of
+`ops.layernorm.layer_norm` on the card. Images are (B, H, W, 3), as in the JAX
 package. Attention of a ViT with a CLS token inside the kernel gate goes
 through `ops.attention.fused_attention` (the hand-written kernels on the
 card); a ViT without one takes the einsum chain, whose normalized attention
@@ -47,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from basd_tpu_torch.ops.activations import gelu, swiglu_gate
+from basd_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain
 from basd_tpu_torch.ops.rope import rope_qk, rope_table
 from basd_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 from basd_tpu_torch.parallel.sharding_rules import attention_split
@@ -116,9 +119,15 @@ def _row_linear(x: torch.Tensor, layer: nn.Linear, dtype, mesh) -> torch.Tensor:
 
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
-    return F.layer_norm(
-        x.float(), layer.normalized_shape, layer.weight, layer.bias, layer.eps
-    ).to(x.dtype)
+    """A call that autograd needs (the student's forward, its remat
+    recomputation) takes the fp32 composite under autograd; any other (a
+    frozen teacher under no_grad, an eval forward) `ops.layernorm.layer_norm`,
+    the one-pass kernel on the card."""
+    if torch.is_grad_enabled() and (
+        x.requires_grad or layer.weight.requires_grad or layer.bias.requires_grad
+    ):
+        return layer_norm_plain(x, layer.weight, layer.bias, layer.eps)
+    return layer_norm(x, layer.weight, layer.bias, layer.eps)
 
 
 def _trunc_normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:

@@ -6,8 +6,8 @@ runs each kernel once at a tiny real shape on the card and holds its
 result against the kernel's plain torch version on the same inputs:
 attention forward (K1) and backward (K2), the TrivialAugment warp (K4),
 the Jacobi eigh (K3, its ping-pong route), the MP rank (its one-CTA
-route), the SwiGLU gate (both routes) and the RoPE rotation (both
-routes). A kernel that fails to build, to launch or to agree raises a
+route), the SwiGLU gate (both routes), the RoPE rotation (both routes)
+and the LayerNorm (its three routes). A kernel that fails to build, to launch or to agree raises a
 `RuntimeError` that names it and carries the original error. Nothing is
 switched: the port has no fallback, so a run that cannot use a kernel
 stops here rather than inside its first step.
@@ -34,6 +34,12 @@ BF16_ATTENTION_TOL = 2e-2
 # the SwiGLU gate rounds once from fp32: within one unit in the last place
 # of the output dtype, relative to each value
 GATE_ULP = {torch.bfloat16: 2.0**-7, torch.float32: 2.0**-23}
+# the LayerNorm kernel sums a row in another order than torch's Welford
+# kernel: each value within one unit in the last place of the output dtype
+# at the plain version's value, and, where that value is near zero, within
+# LN_ROW_ULPS fp32 ulps of its row's largest |value| (the statistics' own
+# rounding, on the row's scale)
+LN_ROW_ULPS = 4
 
 _VALIDATED: set[str] = set()
 
@@ -180,6 +186,46 @@ def _rope(device: torch.device) -> str:
     return _bit_for_bit(pairs, "rope_qk")
 
 
+def layernorm_excess(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| over the LayerNorm kernel's allowance (`LN_ROW_ULPS`),
+    in fp64, value by value: at most 1 where the kernel agrees."""
+    g, w = got.double(), want.double()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - (8 if want.dtype == torch.bfloat16 else 24))
+    row = w.abs().amax(dim=-1, keepdim=True) * (LN_ROW_ULPS * 2.0**-23)
+    return (g - w).abs() / (ulp + row)
+
+
+def _layernorm(device: torch.device) -> str:
+    """The LayerNorm on its warp route (bf16, D 64), its CTA route (bf16, D
+    2,048) and its scalar route (fp32, D 13), each as the library reports
+    it on the card, against the plain version on the same rows: within
+    `layernorm_excess`'s allowance."""
+    from basd_tpu_torch.ops.layernorm import layer_norm, layer_norm_plain, layernorm_route
+
+    rng = np.random.default_rng(0)
+    pairs = []
+    for rows, d, dtype, route in ((5, 64, torch.bfloat16, "warp"),
+                                  (3, 2048, torch.bfloat16, "cta"),
+                                  (3, 13, torch.float32, "scalar")):
+        x = torch.from_numpy((2.0 * rng.standard_normal((rows, d)) + 0.5).astype(np.float32))
+        w, b = (torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(device)
+                for _ in range(2))
+        x = x.to(device=device, dtype=dtype)
+        got = layer_norm(x, w, b, 1e-6)
+        took = layernorm_route(x, got, w, b) if device.type == "cuda" else route
+        if took != route:
+            raise AssertionError(f"layernorm ({rows}, {d}) {dtype}: route {took}, want {route}")
+        pairs.append((got, layer_norm_plain(x, w, b, 1e-6)))
+    if all(torch.equal(got, want) for got, want in pairs):
+        return "bit for bit"
+    worst = max(layernorm_excess(got, want).max().item() for got, want in pairs)
+    if not worst <= 1.0:
+        raise AssertionError(f"layernorm: {worst:.3g} times the allowance against the plain "
+                             f"version (one ulp, {LN_ROW_ULPS} fp32 ulps of the row)")
+    return "within one ulp"
+
+
 # (name, check): each check launches its kernels on `device` and returns
 # what it read, or raises
 KERNEL_CHECKS = (
@@ -190,6 +236,7 @@ KERNEL_CHECKS = (
     ("mp_rank", _mp_rank),
     ("swiglu_gate", _swiglu_gate),
     ("rope_qk", _rope),
+    ("layernorm", _layernorm),
 )
 
 

@@ -138,7 +138,13 @@ Phases, in order; any failure raises and the exit code is not 0:
      and SDPA, timed; one `dinov3_vit7b16` forward at batch 256 (wall ms,
      40 rotations, 40 K1 and 40 gates, peak memory); the Table-1 step with
      that teacher: route graph, a replay's launches (40 rotations, 40
-     gates, K1 64), peak memory and stage spans;
+     gates, K1 64, 81 LayerNorms), peak memory and stage spans;
+  5k. the LayerNorm kernel (`layernorm_check()` in a process of its own) at
+     the four benchmark teachers' rows (640 x 768, 65,792 x 1,024,
+     65,792 x 1,536, 51,456 x 4,096) bf16, t1's in fp32, an odd width and
+     unaligned rows (the scalar route): within one ulp of the composite
+     (a few fp32 ulps of the row's scale near zero), the share of values
+     that differ, timed beside the composite, F.layer_norm and its bound;
   6. reference: small configurations stepped with augment=True on the
      card and on the CPU (plain versions) from one set of draws, student
      views, losses and ranks compared, with a ViT and a ConvNeXt-V2
@@ -236,11 +242,12 @@ BF16_ULPS_8 = 8 * 2.0**-8
 # the launches of the kernel start-up check (`utils/kernel_smoke.py`) in a
 # process that has not checked its card yet: K1 in the attention check and
 # in the backward check's forward, K2, K4, K3, the MP-rank kernel, the
-# SwiGLU gate and the RoPE rotation on each of their two routes; no GELU
-# kernel
+# SwiGLU gate and the RoPE rotation on each of their two routes, the
+# LayerNorm on its three; no GELU kernel
 KERNEL_CHECK_LAUNCHES = {"attention_fwd": 2, "attention_bwd": 1, "jacobi_eigh": 1,
                          "warp": 1, "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1,
-                         "swiglu_gate": 2, "gelu_fwd": 0, "gelu_bwd": 0, "rope_qk": 2}
+                         "swiglu_gate": 2, "gelu_fwd": 0, "gelu_bwd": 0, "rope_qk": 2,
+                         "layernorm": 3}
 
 
 def table1_inputs(dev):
@@ -606,6 +613,15 @@ def gelu_mlps(module) -> int:
     return sum(isinstance(m, (Mlp, ConvNeXtMlp)) for m in module.modules())
 
 
+def layer_norms(module) -> int:
+    """The LayerNorms of a model (a ViT's 2 depth + 1, a ConvNeXt's stem,
+    downsample and block norms): each runs the LayerNorm kernel once a
+    forward that autograd does not need."""
+    import torch
+
+    return sum(isinstance(m, torch.nn.LayerNorm) for m in module.modules())
+
+
 def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     """Each kernel's launches in one train step of a configuration: K1 in
     every block, teacher's and student's, of a ViT with a CLS token inside
@@ -616,8 +632,10 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
     view, the MP-rank kernel once (the teacher layers' ranks at n = D_s)
     inside its gate, the SwiGLU gate in every block of a SwiGLU teacher,
     the GELU forward in every GELU MLP of the teacher and of the student (a
-    student's twice under remat), the GELU backward in the student's and
-    the RoPE rotation in every block of a RoPE teacher."""
+    student's twice under remat), the GELU backward in the student's, the
+    RoPE rotation in every block of a RoPE teacher and the LayerNorm kernel
+    in every LayerNorm of the teacher (the student's run under autograd, on
+    the composite)."""
     from basd_tpu_torch.losses.selector import selector_eigh_shapes
     from basd_tpu_torch.ops import attention as attn
     from basd_tpu_torch.spectral.ops import use_jacobi, use_mp_kernel
@@ -641,7 +659,8 @@ def per_step_launches(scfg, tch, pts, k, augment) -> dict:
             "gelu_fwd": student_gelu * (2 if scfg.remat else 1) + gelu_mlps(tch.module),
             "gelu_bwd": student_gelu,
             "rope_qk": tch.spec.depth if tch.spec.family == "vit"
-            and tch.spec.positions == "rope" else 0}
+            and tch.spec.positions == "rope" else 0,
+            "layernorm": layer_norms(tch.module)}
 
 
 def stage_table3(dev) -> dict:
@@ -837,7 +856,7 @@ def graph_check() -> int:
     dev = torch.device("cuda", 0)
     per_step = {"attention_fwd": 24, "attention_bwd": 12, "jacobi_eigh": 3, "warp": 1,
                 "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0,
-                "gelu_fwd": 24, "gelu_bwd": 12, "rope_qk": 0}
+                "gelu_fwd": 24, "gelu_bwd": 12, "rope_qk": 0, "layernorm": 25}
     readings = graph_phase(dev, stage_table3(dev), per_step, MAIN_STEPS)
     print(json.dumps(readings))
     print(card_line(dev))
@@ -1180,7 +1199,8 @@ def teacher_step_check(dev, tch) -> dict:
     DINOv3 ViT-7B/16) through `make_train_step`: its route (`graph`), the
     launches of each call and of one replay (`per_step_launches`: K1 in
     the student's 12 blocks twice and in each teacher block, a gate a
-    teacher block, a rotation a block of a RoPE teacher), the step's peak
+    teacher block, a rotation a block of a RoPE teacher, the LayerNorm
+    kernel 2 depth + 1 times, the teacher's LayerNorms), the step's peak
     memory, the wall ms of the replays and the median of each stage's span
     over VITG_SPAN_STEPS more replays (`step_fn.spans`, unprofiled)."""
     import torch
@@ -1238,6 +1258,7 @@ def teacher_step_check(dev, tch) -> dict:
     rope = depth if tch.spec.positions == "rope" else 0
     if (step_fn.route != "graph" or step_fn.launches != want or want["swiglu_gate"] != depth
             or want["rope_qk"] != rope or want["attention_fwd"] != 2 * scfg.depth + depth
+            or want["layernorm"] != 2 * depth + 1
             or any(c != want for c in calls[2:]) or not np.isfinite(out["loss"])):
         raise AssertionError(f"{tch.spec.name} train step: {out}")
     return out
@@ -1850,7 +1871,7 @@ def dinov3_forward_case(dev):
     out = dict(wall_ms=wall, forward_ms=float(np.median(wall)), launches=launches,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
                weights_gib=sum(p.numel() * 4 for p in module.parameters()) / 2**30)
-    want = {"rope_qk": 40, "attention_fwd": 40, "swiglu_gate": 40}
+    want = {"rope_qk": 40, "attention_fwd": 40, "swiglu_gate": 40, "layernorm": 81}
     if {k: launches.get(k, 0) for k in want} != want:
         raise AssertionError(f"ViT-7B forward launches {launches}, want {want}")
     torch.cuda.empty_cache()
@@ -1917,6 +1938,116 @@ def rope_check() -> int:
 
 M7_OUT = "chiprun_out/m7"
 MP_RANK_JSON = os.path.join(os.path.dirname(M7_OUT), "mp_rank.json")  # phase 5f's readings
+# phase 5k: the LayerNorm kernel (`csrc/layernorm.cu`) at the four benchmark
+# teachers' shapes (t3, t1, vg, dv: batch x (patches + CLS + registers)
+# rows of the teacher's width), each case (label, rows, width, dtype,
+# offset): t1's in fp32, an odd width and a view one element into its
+# buffer (both the scalar route)
+LAYERNORM_JSON = os.path.join("chiprun_out", "layernorm.json")
+LAYERNORM_CASES = (("t3 teacher", 640, 768, "bfloat16", 0),
+                   ("t1 teacher", 65792, 1024, "bfloat16", 0),
+                   ("vg teacher", 65792, 1536, "bfloat16", 0),
+                   ("dv teacher", 51456, 4096, "bfloat16", 0),
+                   ("t1 teacher fp32", 65792, 1024, "float32", 0),
+                   ("odd width", 4099, 13, "bfloat16", 0),
+                   ("unaligned", 4096, 1024, "bfloat16", 1))
+LAYERNORM_SEED = 3000000061
+# the per-value allowance cannot see an error smaller than one ulp made
+# systematically, so two readings over each case's values bound it: the
+# share of bf16 values that differ from the composite (an H100 at 700 W
+# read 1.1e-5 to 2.6e-5 on every bf16 case), and the drift, the sum of the
+# differences signed by the composite's values over the sum of their
+# magnitudes. Emulated in torch on these cases' rows, a correct two-pass
+# LayerNorm reads a share of 3.1e-5 to 3.8e-5 and a drift within 3e-8; one
+# that truncates in place of rounding 0.5 and -2.8e-3; one that divides the
+# variance by D - 1 2.8% and -1.2e-4 at D 4,096 (13.5% and -6.4e-4 at 768)
+LAYERNORM_BF16_SHARE_LIMIT = 5e-4
+LAYERNORM_DRIFT_LIMIT = 1e-5
+
+
+def layernorm_case(dev, label, rows, d, dtype_name, offset, seed) -> dict:
+    """The kernel on seeded rows (mean 0.5, scale 2; weight near 1, a small
+    bias) against the plain composite on the card: every value within the
+    start-up check's allowance (`kernel_smoke.layernorm_excess`: one ulp of
+    the dtype, or a few fp32 ulps of the row's scale near zero), the share
+    that differs (bf16) and the drift within their limits; timed by device
+    time alone beside the composite, F.layer_norm in the rows' dtype and
+    the bound (x read and y written once over the memory bandwidth)."""
+    import torch
+    import torch.nn.functional as F
+
+    from basd_tpu_torch.ops.layernorm import layer_norm_cuda, layer_norm_plain, layernorm_route
+    from basd_tpu_torch.tools.timing import device_ms, kernel_ms
+    from basd_tpu_torch.utils.kernel_smoke import layernorm_excess
+
+    dtype = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = (2.0 * torch.randn(rows * d + offset, generator=gen, device=dev) + 0.5).to(dtype)
+    x = buf[offset:].view(rows, d)
+    w = 1.0 + 0.2 * torch.randn(d, generator=gen, device=dev)
+    b = 0.1 * torch.randn(d, generator=gen, device=dev)
+    y = layer_norm_cuda(x, w, b, 1e-6)
+    want = layer_norm_plain(x, w, b, 1e-6)
+    excess = float(layernorm_excess(y, want).max())
+    differing = int((y != want).sum())
+    share = differing / y.numel()
+    drift = float(torch.sum((y.float() - want.float()) * want.float().sign(),
+                            dtype=torch.float64)
+                  / torch.sum(want.float().abs(), dtype=torch.float64))
+    if not (excess <= 1.0 and abs(drift) <= LAYERNORM_DRIFT_LIMIT
+            and (dtype != torch.bfloat16 or share <= LAYERNORM_BF16_SHARE_LIMIT)):
+        raise AssertionError(
+            f"layernorm {label} ({rows}, {d}) {dtype_name}: {excess:.3g} times the allowance "
+            f"against the plain version; {share:.3g} of values differ (bf16 limit "
+            f"{LAYERNORM_BF16_SHARE_LIMIT}); drift {drift:.3g} (limit {LAYERNORM_DRIFT_LIMIT})")
+    wl, bl = w.to(dtype), b.to(dtype)
+    row = dict(route=layernorm_route(x, y, w, b), differing=differing,
+               differing_share=share, drift=drift, max_excess=excess,
+               max_abs_err=float((y.float() - want.float()).abs().max()),
+               ms=device_ms(lambda: layer_norm_cuda(x, w, b, 1e-6), dev),
+               device_ms=kernel_ms(lambda: layer_norm_cuda(x, w, b, 1e-6), dev),
+               plain_ms=kernel_ms(lambda: layer_norm_plain(x, w, b, 1e-6), dev),
+               library_ms=kernel_ms(lambda: F.layer_norm(x, (d,), wl, bl, 1e-6), dev),
+               bound_ms=2 * rows * d * x.element_size() / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    row["roofline_pct"] = 100.0 * row["bound_ms"] / row["device_ms"]
+    return row
+
+
+def layernorm_check() -> int:
+    """Phase 5k alone, about a minute on one card: the kernels built, the
+    LayerNorm cases; its readings as JSON into LAYERNORM_JSON, then the
+    card's name and power limit. Run it as
+    `python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.layernorm_check())"`."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check needs the card", file=sys.stderr)
+        return 2
+    from basd_tpu_torch import kernels
+    from basd_tpu_torch.device import card_line
+
+    print(kernels.build_all().get("layernorm", ""), flush=True)  # registers, spills
+    dev = torch.device("cuda", 0)
+    readings = {"cases": {}}
+    for i, (label, rows, d, dtype_name, offset) in enumerate(LAYERNORM_CASES):
+        case = f"{label} ({rows}, {d}) {dtype_name}"
+        row = layernorm_case(dev, label, rows, d, dtype_name, offset, LAYERNORM_SEED + i)
+        readings["cases"][case] = row
+        print(f"kernel layernorm {case}: route {row['route']}; {row['differing_share']:.3%} "
+              f"of values differ from the composite (at most {row['max_excess']:.3g} of the "
+              f"allowance, drift {row['drift']:.3g}); device {row['device_ms']:.4f} ms (event loop {row['ms']:.4f}), "
+              f"bound {row['bound_ms']:.4f} ({row['roofline_pct']:.1f}%), composite "
+              f"{row['plain_ms']:.4f}, F.layer_norm {row['library_ms']:.4f}", flush=True)
+        torch.cuda.empty_cache()
+    readings["card"] = card_line(dev)
+    os.makedirs(os.path.dirname(LAYERNORM_JSON), exist_ok=True)
+    with open(LAYERNORM_JSON, "w") as f:
+        json.dump(readings, f)
+    print(readings["card"])
+    return 0
+
+
 # phase 8's run: `python -m basd_tpu_torch.train` as a user runs it, at
 # Table-3 width on 1,024 synthetic images, one epoch of 8 steps, `latest`
 # every 4; the arch_overrides keep the student at DeiT-Tiny width (a random
@@ -2013,6 +2144,8 @@ def trainer_phase(dev, env, bare_step_median_ms: float | None) -> dict:
     want = {name: per_step[name] * steps for name in per_step}
     want["attention_fwd"] += scfg.depth * eval_forwards + teacher_layers(trainer.teacher)
     want["gelu_fwd"] += scfg.depth * eval_forwards + gelu_mlps(trainer.teacher.module)
+    want["layernorm"] += (2 * scfg.depth + 1) * eval_forwards + layer_norms(
+        trainer.teacher.module)
     want["mp_rank"] += 1
     # the trainer's kernel start-up check: this process's first Trainer
     check_launches = trainer.kernel_check_launches
@@ -2296,6 +2429,8 @@ def trainer_phase(dev, env, bare_step_median_ms: float | None) -> dict:
     eval_launches = dict(kernels.LAUNCHES)
     want_eval = {name: 0 for name in eval_launches}
     want_eval["attention_fwd"] = want_eval["gelu_fwd"] = scfg.depth * (
+        eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
+    want_eval["layernorm"] = (2 * scfg.depth + 1) * (
         eval_batches + eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
     if not (same_primary(sub_primary) and same_primary(in_process["primary"])
             and eval_launches == want_eval):
@@ -3267,7 +3402,7 @@ def main() -> int:
     table3 = {"attention_fwd": 24, "attention_bwd": 12,
               "jacobi_eigh": 3 if k3_on_path else 0, "warp": 1,
               "jacobi_eigvals": 0, "attn_probe": 0, "mp_rank": 1, "swiglu_gate": 0,
-              "gelu_fwd": 24, "gelu_bwd": 12, "rope_qk": 0}
+              "gelu_fwd": 24, "gelu_bwd": 12, "rope_qk": 0, "layernorm": 25}
     if per_step_launches(cfg, teacher, points, k_cal, True) != table3:
         raise AssertionError(f"Table-3 launches per step "
                              f"{per_step_launches(cfg, teacher, points, k_cal, True)}")
@@ -3506,6 +3641,15 @@ def main() -> int:
         rope_readings["k1_hd128"]
     path_launches["rope_cases"] = rope_readings["launches"]
     path_launches["dinov3_step"] = rope_readings["step"]["launches"]
+    # ---- 5k. the LayerNorm kernel at the teachers' shapes, in a process of its own ----
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke, sys; sys.exit(chip_smoke.layernorm_check())"],
+        capture_output=True, text=True, timeout=600, env=package_env())
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"layernorm_check exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(LAYERNORM_JSON) as f:
+        report["layernorm"] = json.load(f)["cases"]
     timing = mp["timing"]["shapes"]
     report["mp_rank"] = {}
     for bsz, nn_, m_ in time_mp_rank.PLAIN_SHAPES:
@@ -3918,11 +4062,15 @@ def main() -> int:
         want = {n: v * 8 + KERNEL_CHECK_LAUNCHES[n] for n, v in per_step9.items()}
         want["attention_fwd"] += eval_fwd
         want["gelu_fwd"] += eval_fwd
+        want["layernorm"] += 2 * (2 * m7_student.depth + 1)
         if row["rank"] == 0:  # the efficiency forwards and the K calibration
             efficiency = m7_student.depth * (
                 eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches)
             want["attention_fwd"] += efficiency + teacher_layers(trainer.teacher)
             want["gelu_fwd"] += efficiency + gelu_mlps(trainer.teacher.module)
+            want["layernorm"] += (2 * m7_student.depth + 1) * (
+                eval_cfg.efficiency_warmup + eval_cfg.efficiency_batches) + layer_norms(
+                trainer.teacher.module)
             want["mp_rank"] += 1
         if (row["subspace_k"] != k9 or row["steps"] != 8 or row["launches"] != want
                 or row["kernel_check_launches"] != KERNEL_CHECK_LAUNCHES
@@ -4087,9 +4235,11 @@ def main() -> int:
     torch.cuda.synchronize()
     path_launches["entry_forward"] = dict(kernels.LAUNCHES)
     if path_launches["entry_forward"] != {**dict.fromkeys(kernels.LAUNCHES, 0),
-                                          "attention_fwd": 12, "gelu_fwd": 12}:
+                                          "attention_fwd": 12, "gelu_fwd": 12,
+                                          "layernorm": 25}:
         raise AssertionError(f"entry forward launches {path_launches['entry_forward']}, "
-                             "expected K1 and the GELU forward once per block (12)")
+                             "expected K1 and the GELU forward once per block (12), the "
+                             "LayerNorm twice per block and once after (25)")
     cpu_forward, _ = entry_mod.entry(device="cpu")
     cpu_params = {k: v.cpu() for k, v in e_params.items()}
     seeded = torch.rand(e_images.shape, device=dev, generator=gen)
@@ -4166,6 +4316,9 @@ def main() -> int:
         "rope_qk": ("basd_tpu_torch/csrc/rope.cu",
                     "none (the JAX package has no rotary positions)",
                     "ViT-7B teacher (256, 201, 12288) bfloat16"),
+        "layernorm": ("basd_tpu_torch/csrc/layernorm.cu",
+                      "none (flax's nn.LayerNorm in basd_tpu/models/vit.py, fused by XLA)",
+                      "t1 teacher (65792, 1024) bfloat16"),
     }
     # each kernel's launches on the path it serves: the train step for
     # K1-K4, the spectral tuner for K5, the attention probe for K6, the
@@ -4179,6 +4332,7 @@ def main() -> int:
                 "orth_err", "eig3_err", "us_per_step", "route", "k1_ms",
                 "k1_plain_ms", "k1_bound_ms", "sdpa_ms", "differing",
                 "w_equals_k5", "k5_device_ms", "over_own_ulp", "max_ulps", "roofline_pct",
+                "differing_share", "max_excess",
                 *(f"{k}_sweeps{sw}" for sw in (6, 12)
                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
                             "us_per_step", "k5_device_ms")))

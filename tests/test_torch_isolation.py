@@ -237,6 +237,6 @@ def test_every_kernel_has_a_launch_counter_and_a_library():
     assert set(kernels.LAUNCHES) == {
         "attention_fwd", "attention_bwd", "jacobi_eigh", "warp",
         "jacobi_eigvals", "attn_probe", "mp_rank", "swiglu_gate", "gelu_fwd", "gelu_bwd",
-        "rope_qk"}
+        "rope_qk", "layernorm"}
     for name in kernels._SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists(), name

@@ -26,7 +26,7 @@ CARD = torch.device("cuda", 0)  # a CUDA-typed device; the stand-ins never touch
 
 
 def _stand_ins(monkeypatch, failing=None):
-    """Replace the seven checks by stand-ins that record their calls and
+    """Replace the eight checks by stand-ins that record their calls and
     count one launch each under their kernel's name (as the real checks
     launch); `failing` raises ValueError instead. Forget earlier checks."""
     calls = []
@@ -62,7 +62,7 @@ def test_failing_check_raises_naming_the_kernel_and_switches_nothing(monkeypatch
     assert str(err.value).count("Error:") == 1  # only the failing kernel is named
     # every check ran, the failing one reported, nothing was switched
     assert [n for n, _ in calls] == ["attention", "attention_bwd", "warp", "jacobi", "mp_rank",
-                                     "swiglu_gate", "rope_qk"]
+                                     "swiglu_gate", "rope_qk", "layernorm"]
     assert all(d == CARD for _, d in calls)
     assert dict(os.environ) == env
     out = capsys.readouterr().out
@@ -71,10 +71,11 @@ def test_failing_check_raises_naming_the_kernel_and_switches_nothing(monkeypatch
     assert "kernel_smoke mp_rank ok, stand-in ok" in out
     assert "kernel_smoke swiglu_gate ok, stand-in ok" in out
     assert "kernel_smoke rope_qk ok, stand-in ok" in out
+    assert "kernel_smoke layernorm ok, stand-in ok" in out
     # not marked as checked: the next call checks again
     with pytest.raises(RuntimeError, match="warp"):
         ks.validate_kernel_dispatches(CARD, verbose=False)
-    assert len(calls) == 14
+    assert len(calls) == 16
 
 
 def test_passing_checks_return_their_launches_once_per_device(monkeypatch):
@@ -82,14 +83,14 @@ def test_passing_checks_return_their_launches_once_per_device(monkeypatch):
     before = dict(kernels.LAUNCHES)
     got = ks.validate_kernel_dispatches(CARD, verbose=False)
     want = dict.fromkeys(kernels.LAUNCHES, 0)
-    want.update(attention_fwd=6, warp=1)
+    want.update(attention_fwd=7, warp=1)
     assert got == want
     assert {n: kernels.LAUNCHES[n] - before[n] for n in before} == want
     # once per process and device: a second call checks nothing
     assert ks.validate_kernel_dispatches(CARD) == dict.fromkeys(kernels.LAUNCHES, 0)
-    assert len(calls) == 7
+    assert len(calls) == 8
     ks.validate_kernel_dispatches(torch.device("cuda", 1), verbose=False)
-    assert len(calls) == 14
+    assert len(calls) == 16
 
 
 @pytest.mark.parametrize("name", [n for n, _ in ks.KERNEL_CHECKS])

@@ -15,6 +15,7 @@ import torch
 from basd_tpu_torch import kernels
 from basd_tpu_torch.spectral import mp_rank_kernel as mk
 from basd_tpu_torch.spectral import ops as tops
+from basd_tpu_torch.spectral import tridiag
 from basd_tpu_torch.spectral.tridiag import mp_rank_sturm
 
 torch.set_num_threads(1)
@@ -84,7 +85,7 @@ def test_layout_constants_match_the_source():
     assert re.findall(r"case (\d+): return launch<\1>", SOURCE) == list(map(str, mk.CLUSTERS))
     assert const("kMinN") == mk.MIN_N
     assert "return rows * n + 5 * (size_t)n + kScratch;" in SOURCE
-    assert const("kShifts") == 128 and const("kRounds") == 3
+    assert const("kShifts") == 128 and const("kRounds") == tridiag.BRACKET_ROUNDS
 
 
 @pytest.mark.parametrize("b, n, m", [(3, 192, 640), (2, 384, 65792), (4, 8, 32), (3, 33, 100)])
@@ -102,6 +103,31 @@ def test_cpu_wrapper_is_mp_rank_sturm_bit_for_bit(b, n, m):
     assert torch.equal(tops.marchenko_pastur_rank_gram(gram, m), want)
     assert want.tolist() == planted
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mean_scale", [3.0, 30.0])
+def test_plain_rank_equals_the_oracle_far_below_the_top(mean_scale):
+    """Uncentered Grams of features that share a strong mean put the top
+    eigenvalue 1e4 (mean_scale 3) to 1e6 (30) times the median, as the
+    Table-1 teacher's do. The bracket's BRACKET_ROUNDS rounds find the
+    median to its fp32 spacing there, so the ranks equal the float64
+    oracle's on every matrix, none of which has an eigenvalue within 1e-4
+    of the edge; 3 rounds, the JAX package's, miss at 1e6."""
+    n, m, b = 128, 4096, 8
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((b, m, n)) * np.exp(-np.linspace(0.0, 3.0, n))
+    x = x * rng.uniform(0.5, 2.0, (b, 1, n)) + mean_scale * rng.standard_normal((b, 1, n))
+    cov = torch.from_numpy(np.einsum("bmi,bmj->bij", x, x).astype(np.float32)) / m
+    cov = (cov + cov.transpose(-1, -2)) * 0.5
+    w = np.linalg.eigvalsh(cov.double().numpy())
+    top_over_median = w[:, -1] / np.median(w, axis=-1)
+    assert top_over_median.min() > 1e3 * mean_scale ** 2 / 9
+    lam = np.median(w, axis=-1) * (1.0 + (n / m) ** 0.5) ** 2
+    assert np.abs(w / lam[:, None] - 1.0).min() > 1e-4
+    oracle = (w > lam[:, None]).sum(-1)
+    assert mp_rank_sturm(cov, m).tolist() == oracle.tolist()
+    if mean_scale == 30.0:
+        assert mp_rank_sturm(cov, m, rounds=3).tolist() != oracle.tolist()
 
 
 def test_cpu_wrapper_keeps_leading_axes():
